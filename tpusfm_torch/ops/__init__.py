@@ -1,0 +1,1 @@
+"""Array ops and the hand-written CUDA kernels with their plain twins."""
