@@ -1,9 +1,12 @@
 """Bundle-adjustment parity: the port's LM solver against the JAX reference
 on a perturbed 8-camera orbit scene, fed to both through
 tpusfm_torch.convert.scene_from_numpy.  The dense-Schur Cholesky path (every
-20-view solve) and the plain PCG path (forced by dense_schur_max_dim=0,
-against the reference's impl="xla") must reach the same final cost within
-1e-3 relative, and the same poses and points within 1e-3."""
+20-view solve), the plain PCG path (forced by dense_schur_max_dim=0,
+against the reference's impl="xla") and the kernel path (impl="pallas":
+K2-K4's twins on the CPU, against the reference's Pallas path in interpret
+mode) must reach the same final cost within 1e-3 relative, and the same
+poses and points within 1e-3.  More kernel-path cases are in
+test_torch_ba_kernel_path.py."""
 
 import dataclasses
 
@@ -96,9 +99,34 @@ def test_ba_self_calibration_and_priors_match_reference():
     _compare(jout, tout)
 
 
-def test_ba_pallas_impl_raises():
+@pytest.mark.parametrize("case", ["plain", "masked_points", "frozen_cams"])
+def test_ba_kernel_path_matches_reference(case):
+    """Port impl="pallas" vs reference impl="pallas", pallas_interpret=True
+    (bf16 W on both sides, precond "hcc").  The cases share one reference
+    compile: cam_free_mask is passed in all three."""
+    prob = _problem()
+    free = np.ones(8, bool)
+    if case == "masked_points":  # held points sit at the truth, so the cost still falls
+        held = np.arange(200) % 7 == 3
+        prob["point_mask"] = prob["point_mask"] & ~held
+        prob["points"][held] = orbit_scene(n_cams=8, n_points=200, seed=0)["points"][held]
+    if case == "frozen_cams":
+        free[[2, 5]] = False
+    jcfg = jba.BAConfig(max_iters=10, impl="pallas", pallas_interpret=True)
+    tcfg = tba.BAConfig(max_iters=10, impl="pallas")
+    jout, tout = _run_both(prob, jcfg, tcfg, cam_free_mask=free)
+    _compare(jout, tout)
+    if case == "masked_points":
+        held = ~prob["point_mask"]
+        np.testing.assert_array_equal(tout[3].numpy()[held], prob["points"][held])
+    if case == "frozen_cams":
+        np.testing.assert_array_equal(tout[1].numpy()[~free], prob["cam_rot"][~free])
+        np.testing.assert_array_equal(tout[2].numpy()[~free], prob["cam_t"][~free])
+
+
+def test_ba_kernel_path_refine_raises_naming_k5():
     prob = _problem()
     scene = convert.scene_from_numpy(prob, "cpu")
     args = {k: getattr(scene, k) for k in _FIELDS}
-    with pytest.raises(NotImplementedError, match="K2"):
-        tba.bundle_adjust(cfg=tba.BAConfig(impl="pallas"), **args)
+    with pytest.raises(NotImplementedError, match="K5"):
+        tba.bundle_adjust(cfg=tba.BAConfig(impl="pallas", refine_intrinsics=True), **args)

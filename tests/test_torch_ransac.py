@@ -106,28 +106,58 @@ def test_two_view_ransac_with_reference_draws(name):
     _up_to_sign_scale(jm, tm[0].numpy(), atol=5e-3)
 
 
-def test_ac_ransac_with_reference_draws():
-    """A-contrario scoring: same winner, adaptive threshold and support."""
+def _ac_ransac_both(refit):
     rng = np.random.default_rng(21)
     _, x0, x1, valid, _, _ = _scene(rng, n=250)
     x0, x1 = x0 * F_PX + 320, x1 * F_PX + 240
     key = jax.random.PRNGKey(9)
     n_iters, alpha0 = 128, 2.0 * 800.0 / (640.0 * 480.0)
-    jm, jinl, jn, jnfa, jeps = jransac.ransac_ac(
+    jout = jransac.ransac_ac(
         key, jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(valid), solver=jepi.fundamental_8pt,
         scorer=jepi.sampson_error, sample_size=8, n_iters=n_iters, alpha0=alpha0,
-        max_thresh=4.0, min_thresh=1.0)
+        max_thresh=4.0, min_thresh=1.0, refit=refit)
     idx, _ = _reference_draws(key, valid, n_iters, 8, 0)
     T = lambda a: torch.as_tensor(a)[None]  # noqa: E731
-    tm, tinl, tn, tnfa, teps = transac.ransac_ac(
+    tout = transac.ransac_ac(
         None, T(x0), T(x1), T(valid), solver=tepi.fundamental_8pt, scorer=tepi.sampson_error,
-        sample_size=8, n_iters=n_iters, alpha0=alpha0, max_thresh=4.0, min_thresh=1.0, idx=T(idx))
-    collect = max(float(jeps), 1.0)
-    err_ref = jepi.sampson_error(jm, jnp.asarray(x0), jnp.asarray(x1))
-    _check_masks(jinl, tinl[0].numpy(), err_ref, collect, 1.0)
-    np.testing.assert_allclose(float(tnfa[0]), float(jnfa), rtol=1e-3, atol=1e-2)
-    np.testing.assert_allclose(float(teps[0]), float(jeps), rtol=1e-3)
+        sample_size=8, n_iters=n_iters, alpha0=alpha0, max_thresh=4.0, min_thresh=1.0,
+        idx=T(idx), refit=refit)
+    return x0, x1, alpha0, jout, tout
+
+
+@pytest.mark.parametrize("stage", ["hypotheses", "refit"])
+def test_ac_ransac_with_reference_draws(stage):
+    """A-contrario scoring, in two stages.
+
+    hypotheses (refit=False on both sides): same winner, adaptive threshold
+    eps* and support; NFA and eps* at rtol 1e-3.
+
+    refit: the weighted 8-point refit is fed the reference's own pre-refit
+    inlier mask, so its model is compared free of the inlier set; then the
+    final NFA of the full ransac_ac.  The two pre-refit inlier sets may
+    differ by a match lying exactly at eps* (140 vs 141 here), and the refit
+    magnifies that one match, so the final log10-NFA is held to one inlier's
+    a-contrario term at the largest threshold, |log10(alpha0 * max_thresh)|
+    (1.68 decades), and the supports to two matches."""
+    x0, x1, alpha0, (jm, jinl, jn, jnfa, jeps), (tm, tinl, tn, tnfa, teps) = \
+        _ac_ransac_both(refit=stage == "refit")
     assert float(jnfa) < 0 and int(jn) > 80
+    if stage == "hypotheses":
+        collect = max(float(jeps), 1.0)
+        err_ref = jepi.sampson_error(jm, jnp.asarray(x0), jnp.asarray(x1))
+        _check_masks(jinl, tinl[0].numpy(), err_ref, collect, 1.0)
+        np.testing.assert_allclose(float(tnfa[0]), float(jnfa), rtol=1e-3, atol=1e-2)
+        np.testing.assert_allclose(float(teps[0]), float(jeps), rtol=1e-3)
+        _up_to_sign_scale(jm, tm[0].numpy(), atol=5e-3)
+        return
+    jinl0 = _ac_ransac_both(refit=False)[3][1]  # the reference's pre-refit inliers
+    w = np.asarray(jinl0).astype(np.float32)
+    j_refit = jepi.fundamental_8pt(jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(w))
+    t_refit = tepi.fundamental_8pt(torch.as_tensor(x0), torch.as_tensor(x1), torch.as_tensor(w))
+    _up_to_sign_scale(j_refit, t_refit.numpy(), atol=1e-5)
+    one_inlier = abs(math.log10(alpha0 * 4.0))
+    np.testing.assert_allclose(float(tnfa[0]), float(jnfa), rtol=0, atol=one_inlier)
+    assert abs(int(tn[0]) - int(jn)) <= 2
     _up_to_sign_scale(jm, tm[0].numpy(), atol=5e-3)
 
 

@@ -10,13 +10,20 @@ reconstruction) or by block-Jacobi preconditioned CG over segment sums of
 the observation table.  Jacobians come from ``torch.func.jacfwd`` as the
 reference's from ``jax.jacfwd``; nothing needs autograd.
 
-The reference's Pallas path (``_lm_pallas`` with the TPU kernels K2-K5) is
-not ported yet: ``impl="pallas"`` raises, and so does ``impl="auto"`` on a
-CUDA device when the dense solve is not eligible (more than 64 cameras),
-because that is where the reference runs those kernels on its chip.
-On the CPU, ``impl="auto"`` takes the plain PCG path there, as the
-reference's ``impl="xla"`` does.  The LM and CG loops are Python loops that
-read one convergence flag from the device per iteration.
+The reference's Pallas path ``_lm_pallas`` becomes ``_lm_kernels``: the
+observation table is point-sorted once per solve, and linearization, the
+reduced right-hand side and every CG matvec run through the hand-written
+CUDA kernels K2-K4 (``ops/obs_table.py``; on CPU tensors, their plain
+twins).  It runs for ``impl="pallas"`` on any device, and for
+``impl="auto"`` on a CUDA device when the dense solve is not eligible (more
+than 64 cameras), where the reference runs those kernels on its chip.  Of
+that path this port covers the single-device mode with intrinsics held and
+RADIAL3 cameras; refining intrinsics there needs kernel K5, and more than
+2048 cameras or groups or another camera model the unfused kernels K6/K7,
+which are not ported and raise.  On the CPU, ``impl="auto"`` takes the
+plain PCG path, as the reference's ``impl="xla"`` does.  The LM and CG
+loops are Python loops that read one convergence flag from the device per
+iteration.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch.func import jacfwd, vmap
 
 from ..core import camera as cam
 from ..core import lie
+from ..ops import obs_table as ot
 
 POSE_DIM = 6
 INTR_DIM = 7
@@ -49,7 +57,14 @@ class BAConfig:
     lambda_max: float = 1e8
     converge_rtol: float = 3e-6    # accepted-step relative improvement = converged
     fix_first_cam: bool = True     # gauge: camera 0's pose is held
-    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (not ported)
+    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K4)
+    precond: str = "hcc"           # kernel path's PCG preconditioner: "hcc" (damped Hcc
+                                   # blocks) | "schur_diag" (exact S diagonal blocks)
+    w_dtype: str = "bf16"          # kernel path: storage of the coupling table W ("bf16" | "f32")
+    assume_sorted: bool = False    # kernel path: obs_pt is already non-decreasing and dense
+                                   # (every id up to max(obs_pt) has a row; unobserved points
+                                   # only trail), so the per-solve sort is skipped and
+                                   # fractional obs weights are honoured
     dense_schur_max_dim: int = 384  # dense Cholesky of the reduced system up to this width
     dense_schur_max_bytes: int = 256 * 1024 * 1024  # cap on the coupling tables
     camera_model: str = "auto"     # "auto" (7 lanes RADIAL3, 9 Brown-T2) | "fisheye" | "spherical"
@@ -163,9 +178,16 @@ def _tree_vdot(a: dict, b: dict) -> torch.Tensor:
     return sum(torch.sum(a[k] * b[k]) for k in a)
 
 
-def _pcg(matvec, b: dict, apply_M, iters: int, tol: float) -> dict:
+def _pcg(matvec, b: dict, apply_M, iters: int, tol: float, aux0=None):
     """Block-Jacobi preconditioned conjugate gradients over a dict of
-    per-block unknowns."""
+    per-block unknowns.
+
+    aux0: optional zero accumulator.  Then `matvec(p)` returns (Ap, aux_p)
+    with aux_p linear in p, and the solver returns (x, sum_i alpha_i
+    aux_{p_i}), i.e. aux at the solution without another pass (the kernel
+    path gets W^T dc for the point back-substitution this way)."""
+    with_aux = aux0 is not None
+    aux = aux0
     x = {k: torch.zeros_like(v) for k, v in b.items()}
     r = dict(b)
     z = apply_M(r)
@@ -176,16 +198,20 @@ def _pcg(matvec, b: dict, apply_M, iters: int, tol: float) -> dict:
         if not bool(_tree_vdot(r, r) > tol * tol * b2):
             break
         Ap = matvec(p)
+        if with_aux:
+            Ap, aux_p = Ap
         pAp = _tree_vdot(p, Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-30, torch.full_like(pAp, 1e-30), pAp)
         x = {k: x[k] + alpha * p[k] for k in x}
+        if with_aux:
+            aux = aux + alpha * aux_p
         r = {k: r[k] - alpha * Ap[k] for k in r}
         z = apply_M(r)
         rz_new = _tree_vdot(r, z)
         beta = rz_new / torch.where(torch.abs(rz) < 1e-30, torch.full_like(rz, 1e-30), rz)
         p = {k: z[k] + beta * p[k] for k in p}
         rz = rz_new
-    return x
+    return (x, aux) if with_aux else x
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +309,170 @@ def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C):
 
 
 # ---------------------------------------------------------------------------
+# LM loop (both paths)
+# ---------------------------------------------------------------------------
+
+def _lm_loop(linearize, solve, ps, gi, pts, refine: bool, cfg: BAConfig, max_iters: int):
+    """Two-pass-accept Levenberg-Marquardt: solve the carried linearization
+    at the current damping, linearize the candidate (its cost rides along),
+    keep the winner's linearization.  Returns (ps, gi, pts, lambda,
+    initial cost, final cost, iterations)."""
+    sys, cost = linearize(ps, gi, pts)
+    init_cost = cost
+    lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=ps.device)
+    done = torch.zeros((), dtype=torch.bool, device=ps.device)
+    n_it = 0
+    while n_it < max_iters:
+        dc, dg, dp = solve(sys, lam)
+        ps_new = ps + dc
+        gi_new = gi + dg if refine else gi
+        pts_new = pts + dp
+        sys_new, new_cost = linearize(ps_new, gi_new, pts_new)
+        accept = (new_cost < cost) & ~done
+        ps = torch.where(accept, ps_new, ps)
+        gi = torch.where(accept, gi_new, gi)
+        pts = torch.where(accept, pts_new, pts)
+        sys = {k: torch.where(accept, sys_new[k], sys[k]) for k in sys}
+        cost_out = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
+                          torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
+        rel = torch.abs(cost - cost_out) / torch.clamp(cost, min=1e-12)
+        done = done | (accept & (rel < cfg.converge_rtol))
+        cost = cost_out
+        n_it += 1
+        if bool(done):
+            break
+    return ps, gi, pts, lam, init_cost, cost, n_it
+
+
+# ---------------------------------------------------------------------------
+# Kernel path: every observation-table pass through K2-K4
+# ---------------------------------------------------------------------------
+
+def camera_table(ps: torch.Tensor) -> torch.Tensor:
+    """K2's per-camera rows (C, 21) [t | R row-major | Jr row-major] of
+    poses ps (C, 6) = [axis-angle | t]."""
+    C = ps.shape[0]
+    R = lie.so3_exp(ps[:, :3])
+    Jr = lie.so3_right_jacobian(ps[:, :3])
+    return torch.cat([ps[:, 3:6], R.reshape(C, 9), Jr.reshape(C, 9)], 1)
+
+
+def _lm_kernels(pose0, gintr0, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, obs_uv, obs_w,
+                C, G, cfg: BAConfig, max_iters: int, prior_pos=None, prior_w=None):
+    """Counterpart of the reference's ``_lm_pallas`` in its single-device,
+    rank-space mode with intrinsics held: the table is point-sorted and
+    rank-compacted once per solve (or taken as sorted under
+    ``assume_sorted``), the whole point side of the state lives in rank
+    space, and each linearization (K2), right-hand side (K4) and CG matvec
+    (K3) is one kernel call.  Returns (ps, gi, pts, lambda, initial cost,
+    final cost, iterations)."""
+    if cfg.refine_intrinsics:
+        raise NotImplementedError(
+            "the BA kernel path with refine_intrinsics=True needs K2's refine mode and "
+            "kernel K5 (schur_fwd_t), which are not ported yet")
+    E = gintr0.shape[-1]
+    if C > 2048 or G > 2048 or E != INTR_DIM or cfg.camera_model not in ("auto", "radial3"):
+        raise NotImplementedError(
+            f"the BA kernel path with C={C}, G={G} and a {E}-lane {cfg.camera_model!r} camera "
+            "model runs the unfused kernels K6 (segsum_table_t) and K7 (segsum_sorted_t), "
+            "which are not ported yet; the fused K2 takes RADIAL3 and up to 2048 cameras "
+            "and groups")
+    if cfg.precond not in ("hcc", "schur_diag"):
+        raise ValueError(f"precond must be 'hcc' or 'schur_diag', got {cfg.precond!r}")
+    dev = pose0.device
+    if cfg.precond == "schur_diag" and dev.type != "cpu":
+        raise NotImplementedError(
+            "precond='schur_diag' reduces per camera through kernel K6 (segsum_table_t), "
+            "which is not ported yet; use precond='hcc'")
+    P = points.shape[0]
+    D = POSE_DIM
+    if cfg.assume_sorted:
+        # Rank IS the point id: no sort, and fractional weights stand.
+        obs_pt = obs_pt.to(torch.int32)
+        ranks = obs_pt
+        rank_to_pt = torch.arange(P, dtype=torch.int32, device=dev)
+        rank_valid = torch.arange(P, device=dev) <= obs_pt[-1]
+        obs_cam = obs_cam.to(torch.int32)
+        obs_grp = obs_grp.to(torch.int32)
+        obs_w = obs_w.to(torch.float32)
+    else:
+        # One stable sort carries the columns; the weight is rebuilt as
+        # binary from the sort key (the reference's contract, :616-621).
+        cam32, grp32 = obs_cam.to(torch.int32), obs_grp.to(torch.int32)
+        if C < 2 ** 15 and G < 2 ** 16:
+            (packed, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = ot.sort_and_rank_payload(
+                obs_pt, obs_w > 0, P, (cam32 * 65536 + grp32, obs_uv[:, 0], obs_uv[:, 1]))
+            obs_cam = packed // 65536
+            obs_grp = packed - obs_cam * 65536
+        else:
+            (obs_cam, obs_grp, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = \
+                ot.sort_and_rank_payload(obs_pt, obs_w > 0, P, (cam32, grp32, obs_uv[:, 0],
+                                                                  obs_uv[:, 1]))
+        obs_w = (ranks < ot.INVALID_RANK).to(torch.float32)
+        obs_uv = torch.stack([uv0, uv1], 1)
+    obs_uvT = obs_uv.T.contiguous()
+    safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
+    layout = ot.obs_layout(obs_cam, C, ranks, P)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    full66 = torch.tensor(ot._FULL66, device=dev)
+    full33 = torch.tensor(ot._FULL33, device=dev)
+
+    def linearize(ps, gi, pts):
+        camred, ptred, Wc = ot.linearize_reduce_radial3_t(
+            camera_table(ps), gi, pts, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine=False,
+            refine_mask=cfg.refine_mask(), huber_delta=cfg.huber_delta, w_dtype=cfg.w_dtype,
+            layout=layout)
+        sys = {"Hcc": camred[:, full66].reshape(C, D, D), "gc": camred[:, 21:27], "Wc": Wc,
+               "Hpp": ptred[:, full33].reshape(P, 3, 3), "gp": ptred[:, 6:9]}
+        cost = torch.sum(camred[:, -1])
+        if prior_pos is not None:
+            dH, dg, dcost = _prior_terms(ps, prior_pos, prior_w)
+            sys["Hcc"] = sys["Hcc"] + dH
+            sys["gc"] = sys["gc"] + dg
+            cost = cost + dcost
+        return sys, cost
+
+    def solve(sys, lam):
+        Hcc_d = _damp_blocks(sys["Hcc"], lam)
+        Hinv = torch.where(rank_valid[:, None, None], _inv3(_damp_blocks(sys["Hpp"], lam)), zero)
+        gp, Wc = sys["gp"], sys["Wc"]
+        z = torch.einsum("pij,pj->pi", Hinv, gp)
+        rhs = {"c": (-sys["gc"] + ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout))
+               * upd_c}
+        if cfg.precond == "schur_diag":  # exact S diagonal blocks (CPU only, see above)
+            W3 = Wc.to(torch.float32).T.reshape(-1, D, 3)
+            Hinv_o = ot._gather_rows(Hinv, ranks)
+            contrib = torch.einsum("oij,ojk,olk->oil", W3, Hinv_o, W3)
+            M_inv_c = _invD(Hcc_d - ot._segsum_drop(contrib, obs_cam, C))
+        else:  # damped Hcc blocks: one obs-table pass fewer
+            M_inv_c = _invD(Hcc_d)
+
+        def apply_M(v):
+            return {"c": torch.einsum("cij,cj->ci", M_inv_c, v["c"])}
+
+        def mv(v):
+            sv, y = ot.schur_mv_t(Wc, obs_cam, ranks, v["c"] * upd_c, Hinv, P, hcc_d=Hcc_d,
+                                  layout=layout)
+            return {"c": sv * upd_c}, y
+
+        d, Wtd = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol,
+                      aux0=torch.zeros((P, 3), dtype=torch.float32, device=dev))
+        dp = -torch.einsum("pij,pj->pi", Hinv, gp + Wtd) * pt_upd_state
+        return d["c"] * upd_c, None, dp
+
+    # Points enter rank space once and leave it once.
+    pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
+    pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
+    ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr0,
+                                                       pts_state0, False, cfg, max_iters)
+    # Rows of valid ranks go back to their points; the rest keep their input.
+    scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
+    out = torch.cat([points, points[:1]], 0).index_copy_(0, scatter_ids, pts)[:P]
+    return ps, gi, out, lam, init_cost, cost, n_it
+
+
+# ---------------------------------------------------------------------------
 # LM driver
 # ---------------------------------------------------------------------------
 
@@ -320,15 +510,6 @@ def bundle_adjust(
         cam_group = cam_group.long()
         G = int(n_groups) if n_groups is not None else C
     dense_ok = _dense_eligible(C, G, P, cfg)
-    if cfg.impl == "pallas":
-        raise NotImplementedError(
-            "BAConfig.impl='pallas' runs the TPU kernels K2-K5 (ops/obs_table.py), "
-            "which are not ported yet")
-    if cfg.impl == "auto" and intr.device.type == "cuda" and not dense_ok:
-        raise NotImplementedError(
-            f"bundle adjustment with {C} cameras is not dense-Schur eligible; on the "
-            "accelerator that solve runs kernels K2 (linearize_reduce_radial3_t), "
-            "K3 (schur_mv_t) and K4 (schur_bwd_t), which are not ported yet")
     E = intr.shape[-1]
     D = POSE_DIM
     gintr = torch.zeros((G, E), dtype=intr.dtype, device=dev)
@@ -426,34 +607,13 @@ def bundle_adjust(
         return dc, dg, dp
 
     mi = cfg.max_iters if max_iters is None else int(max_iters)
-    ps, gi, pts = pose0, gintr, points
-    sys, cost = linearize(ps, gi, pts)
-    init_cost = cost
-    lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    n_it = 0
-    # Two-pass accept: solve the carried system, linearize the candidate
-    # (its cost rides along), keep the winner's linearization.
-    while n_it < mi:
-        dc, dg, dp = solve(sys, lam)
-        ps_new = ps + dc
-        gi_new = gi + dg if refine else gi
-        pts_new = pts + dp
-        sys_new, new_cost = linearize(ps_new, gi_new, pts_new)
-        accept = (new_cost < cost) & ~done
-        ps = torch.where(accept, ps_new, ps)
-        gi = torch.where(accept, gi_new, gi)
-        pts = torch.where(accept, pts_new, pts)
-        sys = {k: torch.where(accept, sys_new[k], sys[k]) for k in sys}
-        cost_out = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
-                          torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
-        rel = torch.abs(cost - cost_out) / torch.clamp(cost, min=1e-12)
-        done = done | (accept & (rel < cfg.converge_rtol))
-        cost = cost_out
-        n_it += 1
-        if bool(done):
-            break
+    if cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok):
+        ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
+            pose0, gintr, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, obs_uv, obs_w, C, G,
+            cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
+    else:
+        ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr, points,
+                                                           refine, cfg, mi)
     info = {
         "initial_cost": init_cost,
         "final_cost": cost,

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
 into one shared library with a plain C interface, at first use, from the
 sources in this package only.  The library lands in
 ``tpusfm_torch/_build/libtpusfm_kernels-<hash of sources>.so`` and is loaded
-with ``ctypes``; a changed source gets a new hash and is rebuilt.  A missing
-``nvcc`` or a failed build raises.
+with ``ctypes``; a changed source or header gets a new hash and is rebuilt.
+A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lib: ctypes.CDLL | None = None
 
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + list(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -60,20 +61,25 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / (src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                                   "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(_sources(), procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+            if verbose:
+                print(log, end="")
+        tmp = Path(tmpdir) / out.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 
@@ -85,6 +91,12 @@ def kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tpusfm_topk2_match.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.tpusfm_topk2_match.restype = ci
+        lib.tpusfm_ba_linearize.argtypes = [vp] * 11 + [ci] * 4 + [ctypes.c_float, ci] + [vp] * 4
+        lib.tpusfm_ba_linearize.restype = ci
+        lib.tpusfm_ba_schur_mv.argtypes = [vp, ci] + [vp] * 8 + [ci] * 3 + [vp] * 4
+        lib.tpusfm_ba_schur_mv.restype = ci
+        lib.tpusfm_ba_schur_bwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp]
+        lib.tpusfm_ba_schur_bwd.restype = ci
         lib.tpusfm_cuda_error_string.argtypes = [ci]
         lib.tpusfm_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -319,6 +319,7 @@ def run_sparse(images, intr, cfg: PipelineConfig = PipelineConfig(), *, device,
         "n_views": int(images.shape[0]),
         "n_registered": int(scene.cam_mask.sum()),
         "n_points": int(scene.point_mask.sum()),
+        "n_tracks": int(engine.T),
         "n_obs": int(scene.obs_mask.sum()),
         "n_pairs_kept": int(pair_ok.sum()),
         "pair_ok": pair_ok,

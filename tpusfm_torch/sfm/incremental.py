@@ -761,7 +761,10 @@ class IncrementalEngine:
         ouv[: len(rows)] = self.obs_uv[rows]
         omask[: len(rows)] = True
         pt_of[pts_local] = -1  # restore scratch
-        bcfg = dataclasses.replace(self.cfg.ba, fix_first_cam=False, refine_intrinsics=False)
+        # The track-CSR row gathering yields a point-sorted, densely relabeled
+        # table, so the kernel path skips its per-solve sort.
+        bcfg = dataclasses.replace(self.cfg.ba, fix_first_cam=False, refine_intrinsics=False,
+                                   assume_sorted=True)
         _, rot, t, pts, info = _to_host(ba.bundle_adjust(
             cfg=bcfg, max_iters=iters,
             intr=self._dev(intr_l), cam_rot=self._dev(aa_l),
