@@ -17,33 +17,51 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    orbit scene with the reference bench's config, once; asserts >= 19/20
    views, ATE <= 0.05 (scene radius 8), > 1000 points, finite geometry,
    and K1 launches (counts reset just before the run, read just after);
-5. the 200-view slice: run_sparse over the reference's medium rung (200
-   views 240x320, contiguous pairs, bench.py:383-389), a first run in the
-   process and a warm one; each asserts >= 190/200 views, ATE <= 0.10,
-   > 1000 points, finite geometry, and that K1-K4 launched in it (counts
-   reset just before each run).  Every BA of this rung is a 200-camera
-   solve, so it takes the kernel path (_lm_kernels: K2, K3, K4); the first
-   run keeps the last K1 call (its matching chunk) and the last K2/K3/K4
-   call of its final BA as shape (a);
-6. path kernels: K1 bit-equal to its twin at the 200-view chunk, both
-   timed; K2, K3, K4 against their twins evaluated in float64 on the
-   card, at shape (a) and at (b), the reference bench's 500-camera problem
+5. the 200-view slice: run_sparse once over the reference's medium rung
+   (200 views 240x320, contiguous pairs, bench.py:383-389) with the
+   intrinsics held; asserts >= 190/200 views, ATE <= 0.10, > 1000 points,
+   finite geometry, and that K1-K4 launched in it.  Every BA of this rung
+   is a 200-camera solve, so it takes the kernel path (_lm_kernels: K2,
+   K3, K4); the run keeps the last K1 call (its matching chunk) and the
+   last K2/K3/K4 call of its final BA as shape (a);
+6. path A, the self-calibrating 200-view rung: the same scene with one
+   intrinsic group (cam_group = 0), every RADIAL3 lane refined, started
+   from the true focal (FOCAL_START below says why); asserts the same
+   quality bars, the refined fx within 1% of the truth, and that K2 ran in
+   refine mode, K5 with D = 6 and D = 7 and K4 with D = 7 in this run;
+   keeps the last call of each;
+7. path kernels: K1 bit-equal to its twin at the 200-view chunk, both
+   timed; K2, K3, K4 against their twins evaluated in float64 on the card,
+   at shape (a) and at (b), the reference bench's 500-camera problem
    (bench.py:171-202, about 1.5M observations, point-sorted): each within
    4x the float32 twin's own error against float64 (bf16 W within one bf16
    ulp), bit-identical on a repeat call; median ms of kernel and float32
    twin;
-7. BA solve at shape (b): bundle_adjust(max_iters=20, cg_iters=30,
+8. BA solve at shape (b): bundle_adjust(max_iters=20, cg_iters=30,
    assume_sorted=True) through the kernels and through the plain path
    (impl="xla"), as configured and with converge_rtol=0 (all 20
    iterations, for a steadier rate); prints LM iterations per second and
    final costs, asserts the kernel path's cost within 1e-2 relative of the
-   plain path's.
+   plain path's; then the same kernel-path solve with
+   precond="schur_diag" (K6), within 1e-2 of the "hcc" solve;
+9. path B, Brown-T2 self-calibration at shape (b): the bench scene seen
+   through [k1 k2 k3 t1 t2] = [-0.10, 0.015, 0, 0.008, -0.006] plus 0.5 px
+   noise, started from zero distortion with one group: the unfused kernel
+   path (K6, K7, K5 and K4 with D = 6 and 9) and the plain path, both
+   under 0.05 of the initial cost and within 1e-2 of each other, k1 within
+   0.01 and t1, t2 within 0.003 of the lens; LM iterations per second;
+10. the new kernels against their twins at the shapes paths A and B gave
+   them: K2 refine, K4 (D = 7, 9), K5 (D = 6, 7, 9), K6, K7; as phase 7.
 
 The second-to-last stdout line is a JSON object with one entry per kernel
-(route, source, the TPU kernel it replaces, launches in its main-path run
--- the 20-view run for K1, the first 200-view run for K2-K4 --, max abs
-error against the (float64 for K2-K4) twin at the main path's shape, kernel
-and twin milliseconds there); the last line is {"ok": true, "device": {...}}.
+K1-K7: route, source, the TPU kernel it replaces, launches in its main-path
+run (the 20-view run for K1, the held 200-view run for K2-K4, path A for
+K5, path B for K6 and K7), max abs error against the (float64 for K2-K7)
+twin, kernel and twin milliseconds, the least time the card could take
+(bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is
+larger) and what bounds it, and the time of one PyTorch call computing the
+same function where there is one (index_add_ for K6, K7), all at the
+kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when no CUDA device is visible or the
 port is not importable.
 """
@@ -58,8 +76,19 @@ import sys
 import time
 
 
-# The BA kernels' wrapper names in tpusfm_torch.ops.obs_table (K2, K3, K4).
+# The BA kernels' wrapper names in tpusfm_torch.ops.obs_table (K2, K3, K4),
+# and those of the self-calibrating and unfused paths (K5, K6, K7).
 BA_KERNELS = ("linearize_reduce_radial3_t", "schur_mv_t", "schur_bwd_t")
+NEW_KERNELS = ("schur_fwd_t", "segsum_table_t", "segsum_sorted_t")
+# Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and
+# float32 outside the tensor cores, which every kernel here computes in.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Float operations per observation of K2's per-observation math (projection,
+# distortion, Huber weight, closed-form Jacobians: ~290) and products (Hcc,
+# gc, Hpp, gp, W, cost: ~160); refine mode adds Jg and its products (Hcg,
+# Hgg, gg, Wg: ~315).  Counted from csrc/ba_linearize.cu, each done once.
+K2_FLOPS_PER_OBS = {False: 450, True: 765}
 
 
 def _run(cmd: list[str]) -> str:
@@ -175,9 +204,12 @@ def phase_kernel(card: str) -> dict:
     print(f"K1 timing on {card}: 192-pair chunk kernel {ms:.4f} ms ({192 * flops / ms / 1e9:.2f} "
           f"TFLOP/s) vs twin {plain_ms:.4f} ms; 32-pair chunk kernel {ms32:.4f} ms "
           f"({32 * flops / ms32 / 1e9:.2f} TFLOP/s) vs twin {plain_ms32:.4f} ms")
+    out = k1.match_topk2(da, db, mb)
+    bound = _bound([da, db, mb], list(out), 192 * flops)
+    print(f"K1 bound at the 192-pair chunk: {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     return {"name": "topk2_match", "route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
             "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
-            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
@@ -247,74 +279,131 @@ def phase_slice20(entry: dict) -> None:
     print(f"  K1 launches {launches}, wall {wall:.2f} s (first run_sparse in the process)")
 
 
+def _variant(name: str, a: tuple, k: dict) -> str:
+    """The launch variant a path is held to: K2's mode, K4/K5's block
+    height D, K6/K7's value count k."""
+    if name == "linearize_reduce_radial3_t":
+        return "refine" if k.get("refine", len(a) > 8 and a[8]) else "held"
+    if name in ("schur_bwd_t", "schur_fwd_t"):
+        return f"D={a[0].shape[0] // 3}"
+    if name in NEW_KERNELS:
+        return f"k={a[0].shape[0]}"
+    return ""
+
+
 @contextlib.contextmanager
 def _recording(capture: dict | None):
-    """Yields the list of this run's _lm_kernels solves as (C, P, O); when
+    """Yields (solves, calls): this run's _lm_kernels solves as (C, P, O)
+    and a Counter of kernel-wrapper calls by (name, variant).  When
     `capture` is given, also keeps the arguments of the last call of each
-    kernel wrapper (K1-K4) there.  Restores everything on exit."""
+    wrapper (K1-K7) there, under its name and under (name, variant).
+    Restores everything on exit."""
+    from collections import Counter
+
     from tpusfm_torch.ba import bundle_adjust as tba
     from tpusfm_torch.ops import obs_table as ot
     from tpusfm_torch.ops import topk2_match as k1
 
-    solves = []
+    solves, calls = [], Counter()
     saved = {(tba, "_lm_kernels"): tba._lm_kernels}
 
     def lm_kernels(*a, **k):
-        solves.append((a[0].shape[0], a[2].shape[0], a[5].shape[0]))
+        solves.append((a[0].shape[0], a[2].shape[0], a[8].shape[0]))
         return saved[(tba, "_lm_kernels")](*a, **k)
 
     tba._lm_kernels = lm_kernels
-    wrappers = [(k1, "match_topk2")] + [(ot, n) for n in BA_KERNELS]
-    for mod, name in (wrappers if capture is not None else ()):
+    for mod, name in [(k1, "match_topk2")] + [(ot, n) for n in BA_KERNELS + NEW_KERNELS]:
         saved[(mod, name)] = getattr(mod, name)
 
         def rec(*a, _key=(mod, name), **k):
-            capture[_key[1]] = (a, k)
+            key = (_key[1], _variant(_key[1], a, k))
+            calls[key] += 1
+            if capture is not None:
+                capture[key[0]] = capture[key] = (a, k)
             return saved[_key](*a, **k)
 
         setattr(mod, name, rec)
     try:
-        yield solves
+        yield solves, calls
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
 
 
-def phase_slice200(entries: dict) -> dict:
-    """The medium rung twice; returns the first run's last K1-K4 calls."""
+def _run_rung(images, gt, cfg, label, captured, **kw):
+    """One run_sparse of a 200-view rung on the card with the counts reset
+    just before it; asserts its quality bars.  Returns (scene, counts,
+    calls by variant)."""
     from collections import Counter
 
     import torch
 
     from tpusfm_torch.pipeline.sparse import run_sparse
+
+    _reset_counts()
+    with _recording(captured) as (solves, calls):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene, report = run_sparse(images, kw.pop("intr", gt["intr"]), cfg, device="cuda",
+                                   seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = _counts()
+    _check_quality(scene, report, gt, images.shape[0], 190, 0.10, label)
+    print(f"  tracks {report['n_tracks']}, observations {report['n_obs']}, "
+          f"launches {json.dumps(counts)}, wall {wall:.2f} s")
+    print(f"  _lm_kernels solves {len(solves)}, shapes (C, P, O): {dict(Counter(solves))}")
+    print(f"  kernel calls by variant: "
+          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+    if not solves:
+        raise AssertionError(f"{label}: no kernel-path solve")
+    return scene, counts, calls
+
+
+def phase_slice200(entries: dict) -> dict:
+    """The medium rung with intrinsics held; returns its last K1-K4 calls."""
     from tpusfm_torch.tools.front_end_counts import rung_inputs
 
-    n_views = 200
-    images, gt, cfg = rung_inputs(n_views)
+    images, gt, cfg = rung_inputs(200)
     captured = {}
-    walls = []
-    for run in range(2):
-        _reset_counts()
-        with _recording(captured if run == 0 else None) as solves:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            scene, report = run_sparse(images, gt["intr"], cfg, device="cuda", seed=run)
-            torch.cuda.synchronize()
-            walls.append(time.time() - t0)
-        counts = _counts()
-        _check_quality(scene, report, gt, n_views, 190, 0.10,
-                       f"200-view run {run} ({'first' if run == 0 else 'warm'})")
-        print(f"  tracks {report['n_tracks']}, observations {report['n_obs']}, "
-              f"launches {json.dumps(counts)}, wall {walls[-1]:.2f} s")
-        print(f"  _lm_kernels solves {len(solves)}, shapes (C, P, O): "
-              f"{dict(Counter(solves))}")
-        if any(n == 0 for n in counts.values()) or not solves:
-            raise AssertionError(f"200-view run {run}: a kernel of the path did not launch: "
-                                 f"{counts}, {len(solves)} kernel-path solves")
-        if run == 0:
-            for name in BA_KERNELS:
-                entries[name]["launches"] = counts[name]
-    print(f"200-view run_sparse wall seconds: first {walls[0]:.2f}, warm {walls[1]:.2f}")
+    _, counts, _ = _run_rung(images, gt, cfg, "200-view run, intrinsics held", captured)
+    if any(counts[n] == 0 for n in ("topk2_match",) + BA_KERNELS):
+        raise AssertionError(f"200-view run: a kernel of the path did not launch: {counts}")
+    for name in BA_KERNELS:
+        entries[name]["launches"] = counts[name]
+    return captured
+
+
+def phase_selfcal200(entries: dict, focal_start: float) -> dict:
+    """Path A: the medium rung self-calibrating one intrinsic group from a
+    focal `focal_start` times the truth.  Returns its last kernel calls."""
+    import numpy as np
+
+    from tpusfm_torch.tools.front_end_counts import rung_inputs
+
+    images, gt, cfg = rung_inputs(200)
+    n_views = images.shape[0]
+    intr = np.tile(np.asarray(gt["intr"], np.float32), (n_views, 1))
+    intr[:, :2] *= focal_start
+    captured = {}
+    scene, counts, calls = _run_rung(
+        images, gt, cfg, f"200-view run, self-calibrating (focal started x{focal_start})",
+        captured, intr=intr, cam_group=np.zeros(n_views, np.int32))
+    reg = scene.cam_mask.cpu().numpy()
+    f = scene.intr.cpu().numpy()[reg][0]
+    rel = f[:2] / np.asarray(gt["intr"][:2]) - 1.0
+    print(f"  refined intrinsics {np.round(f, 4).tolist()}; focal (fx, fy) {f[0]:.3f}, "
+          f"{f[1]:.3f} vs true {float(gt['intr'][0]):.3f}: relative error {rel[0]:+.5f}, "
+          f"{rel[1]:+.5f}")
+    if not abs(rel[0]) <= FX_TOL:
+        raise AssertionError(f"self-calibrated fx off by {rel[0]:+.5f} (limit {FX_TOL})")
+    need = [("linearize_reduce_radial3_t", "refine"), ("schur_fwd_t", "D=6"),
+            ("schur_fwd_t", "D=7"), ("schur_bwd_t", "D=7")]
+    if any(calls[k] == 0 for k in need) or any(counts[n] == 0 for n in
+                                                ("topk2_match",) + BA_KERNELS + ("schur_fwd_t",)):
+        raise AssertionError(f"self-calibrating run: a kernel of the path did not launch: "
+                             f"{counts}, {dict(calls)}")
+    entries["schur_fwd_t"]["launches"] = counts["schur_fwd_t"]
     return captured
 
 
@@ -354,57 +443,94 @@ def _f64(args):
                  for t in args)
 
 
-def _check_ba_kernels(label, k2, k3, k4, card) -> dict:
-    """Each BA kernel at one shape: error against the float64 twin,
-    bit-identical repeats, median ms of kernel and float32 twin."""
+def _bound(inputs, outputs, flops: float) -> dict:
+    """The least time the card could take for one call: its inputs read
+    once and its outputs written once at the memory rate, or its float32
+    operations at the peak rate, whichever is longer."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"}
+
+
+def _flops(name: str, a: tuple, k: dict) -> float:
+    """Float operations of one call of a BA kernel on these inputs."""
+    if name == "linearize_reduce_radial3_t":
+        return K2_FLOPS_PER_OBS[bool(k.get("refine", False))] * a[5].shape[0]
+    if name == "schur_mv_t":  # W^T v and W z (36 each), Hpp^-1 y per rank, Hcc v per camera
+        return 72 * a[0].shape[1] + 15 * a[5] + 78 * a[3].shape[0]
+    if name in ("schur_bwd_t", "schur_fwd_t"):  # one multiply-add per W entry
+        return 2 * a[0].shape[0] * a[0].shape[1]
+    return a[0].numel()  # K6, K7: one add per value
+
+
+def _index_add(a: tuple):
+    """The one PyTorch call that computes K6's or K7's function on the
+    same inputs (index_add_ of the value columns by id), its index and
+    output made beforehand; rows with an id outside [0, n) are left out."""
+    import torch
+
+    valsT, idx, n = a
+    ok = (idx >= 0) & (idx < n)
+    src, ids = (valsT.T, idx.long()) if bool(ok.all()) else (valsT[:, ok].T, idx[ok].long())
+    out = torch.zeros((n, valsT.shape[0]), dtype=valsT.dtype, device=valsT.device)
+    return lambda: out.index_add_(0, ids, src)
+
+
+def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
+    """One kernel at one captured call (args, kwargs): bit-identical on a
+    repeat, each output within 4x the float32 twin's error against the
+    float64 twin (the W tables of `w_outputs` within one bf16 ulp), median
+    ms of kernel, float32 twin and, for K6/K7, index_add_; its bound."""
     import torch
 
     from tpusfm_torch.ops import obs_table as ot
 
-    out = {}
-    (a2, kw2), (a3, kw3), (a4, kw4) = k2, k3, k4
-    C, P, O = a2[0].shape[0], a2[2].shape[0], a2[5].shape[0]
-    print(f"BA kernels at shape {label}: C={C} P={P} O={O} on {card}")
+    a, kw = call
+    fn, twin = getattr(ot, name), getattr(ot, name + "_reference")
+    tw = {k: v for k, v in kw.items() if k not in ("layout", "grp_layout")}
+    tw64 = {k: (v.double() if isinstance(v, torch.Tensor) else v) for k, v in tw.items()}
+    if "w_dtype" in tw64:
+        tw64["w_dtype"] = "f32"
+    got = _repeat_equal(lambda: fn(*a, **kw), f"{name} at {label}")
+    f32, f64 = twin(*a, **tw), twin(*_f64(a), **tw64)
+    f32 = f32 if isinstance(f32, tuple) else (f32,)
+    f64 = f64 if isinstance(f64, tuple) else (f64,)
+    errs = []
+    for i, (g, lo, hi) in enumerate(zip(got, f32, f64)):
+        if i not in w_outputs:
+            errs.append(_oracle(g, lo, hi, f"{name} output {i}"))
+            continue
+        w64 = hi.double() if g.dtype == torch.float32 else hi.to(torch.bfloat16).double()
+        ulp = torch.maximum(g.double().abs(), w64.abs()) * 2.0 ** -7  # >= one bf16 ulp
+        diff = (g.double() - w64).abs()
+        if not bool((diff <= ulp + 1e-6 * float(w64.abs().max())).all()):
+            raise AssertionError(f"{name} at {label}: W output {i} differs from the float64 "
+                                 "twin by more than one bf16 ulp")
+        print(f"    {name} output {i} ({g.dtype}): within one bf16 ulp of the float64 twin "
+              f"(max abs diff {float(diff.max()):.3e})")
+    res = {"max_abs_err": max(errs), "ms": _median_ms(lambda: fn(*a, **kw)),
+           "plain_ms": _median_ms(lambda: twin(*a, **tw)),
+           "library_ms": _median_ms(_index_add(a)) if name in NEW_KERNELS[1:] else None}
+    ins = [t for t in list(a) + list(tw.values()) if isinstance(t, torch.Tensor)]
+    res.update(_bound(ins, got, _flops(name, a, kw)))
+    lib = "" if res["library_ms"] is None else f", index_add_ {res['library_ms']:.4f} ms"
+    print(f"  {name} at {label}: kernel {res['ms']:.4f} ms, float32 twin {res['plain_ms']:.4f} ms"
+          f"{lib}, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), max abs err vs float64 "
+          f"twin {res['max_abs_err']:.3e}")
+    return res
 
-    tw2 = {k: v for k, v in kw2.items() if k != "layout"}
-    got = _repeat_equal(lambda: ot.linearize_reduce_radial3_t(*a2, **kw2), "K2")
-    f32 = ot.linearize_reduce_radial3_t_reference(*a2, **tw2)
-    f64 = ot.linearize_reduce_radial3_t_reference(*_f64(a2), **dict(tw2, w_dtype="f32"))
-    err = max(_oracle(got[0], f32[0], f64[0], "K2 camred"),
-              _oracle(got[1], f32[1], f64[1], "K2 ptred"))
-    w64 = f64[2].double() if got[2].dtype == torch.float32 else \
-        f64[2].to(torch.bfloat16).double()
-    bound = torch.maximum(got[2].double().abs(), w64.abs()) * 2.0 ** -7  # >= one bf16 ulp
-    w_err = float((got[2].double() - w64).abs().max())
-    if not bool(((got[2].double() - w64).abs() <= bound + 1e-6 * float(w64.abs().max())).all()):
-        raise AssertionError("K2: W differs from the float64 twin by more than one bf16 ulp")
-    print(f"    K2 W ({got[2].dtype}): within one bf16 ulp of the float64 twin "
-          f"(max abs diff {w_err:.3e})")
-    out["linearize_reduce_radial3_t"] = (
-        err, _median_ms(lambda: ot.linearize_reduce_radial3_t(*a2, **kw2)),
-        _median_ms(lambda: ot.linearize_reduce_radial3_t_reference(*a2, **tw2)))
 
-    tw3 = {k: v for k, v in kw3.items() if k != "layout"}
-    got = _repeat_equal(lambda: ot.schur_mv_t(*a3, **kw3), "K3")
-    f32 = ot.schur_mv_t_reference(*a3, **tw3)
-    f64 = ot.schur_mv_t_reference(*_f64(a3), **{k: (v.double() if v is not None else None)
-                                                 for k, v in tw3.items()})
-    err = max(_oracle(got[0], f32[0], f64[0], "K3 S v" if tw3.get("hcc_d") is not None
-                      else "K3 bc"),
-              _oracle(got[1], f32[1], f64[1], "K3 y"))
-    out["schur_mv_t"] = (err, _median_ms(lambda: ot.schur_mv_t(*a3, **kw3)),
-                         _median_ms(lambda: ot.schur_mv_t_reference(*a3, **tw3)))
-
-    got = _repeat_equal(lambda: ot.schur_bwd_t(*a4, **kw4), "K4")
-    f32 = ot.schur_bwd_t_reference(*a4)
-    f64 = ot.schur_bwd_t_reference(*_f64(a4))
-    err = _oracle(got[0], f32, f64, "K4 out")
-    out["schur_bwd_t"] = (err, _median_ms(lambda: ot.schur_bwd_t(*a4, **kw4)),
-                          _median_ms(lambda: ot.schur_bwd_t_reference(*a4)))
-    for name, (e, ms, pms) in out.items():
-        print(f"  {name} at {label}: kernel {ms:.4f} ms, float32 twin {pms:.4f} ms, "
-              f"max abs err vs float64 twin {e:.3e}")
-    return out
+def _check_ba_kernels(label, k2, k3, k4, card) -> dict:
+    """K2, K3 and K4 at one shape (see _check_kernel)."""
+    a2 = k2[0]
+    print(f"BA kernels at shape {label}: C={a2[0].shape[0]} P={a2[2].shape[0]} "
+          f"O={a2[5].shape[0]} on {card}")
+    return {"linearize_reduce_radial3_t": _check_kernel("linearize_reduce_radial3_t", k2, label,
+                                                        w_outputs=(2,)),
+            "schur_mv_t": _check_kernel("schur_mv_t", k3, label),
+            "schur_bwd_t": _check_kernel("schur_bwd_t", k4, label)}
 
 
 def _bench_problem(dev):
@@ -471,48 +597,147 @@ def phase_ba_kernels(card, captured: dict, entries: dict) -> dict:
     dev = torch.device("cuda")
     _check_k1_captured(captured, card)
     res_a = _check_ba_kernels("(a) 200-view final BA", *(captured[n] for n in BA_KERNELS), card)
-    for name, (err, ms, pms) in res_a.items():
-        entries[name].update(max_abs_err=err, ms=ms, plain_ms=pms)
+    for name, res in res_a.items():
+        entries[name].update(res)
     bench = _bench_problem(dev)
     _check_ba_kernels("(b) 500-camera bench problem", *_bench_kernel_args(bench), card)
     return bench
 
 
-def phase_ba_solve(bench: dict, card: str) -> None:
+def _timed_solve(bench: dict, cfg, label: str, card: str, **kw):
+    """One bundle_adjust after a one-iteration warm-up, counts reset just
+    before it; prints LM it/s.  Returns (output, launches)."""
     import torch
 
     from tpusfm_torch.ba import bundle_adjust as tba
     from tpusfm_torch.ops import obs_table as ot
 
+    tba.bundle_adjust(cfg=dataclasses.replace(cfg, max_iters=1), **bench, **kw)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = tba.bundle_adjust(cfg=cfg, **bench, **kw)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    its = int(out[4]["iterations"])
+    launches = dict(ot.LAUNCHES)
+    C, P, O = bench["intr"].shape[0], bench["points"].shape[0], bench["obs_cam"].shape[0]
+    print(f"BA solve at C={C} P={P} O={O} via {label} on {card}: {its} LM iterations in "
+          f"{dt:.3f} s = {its / dt:.3f} LM it/s; cost {float(out[4]['initial_cost']):.6g} "
+          f"-> {float(out[4]['final_cost']):.6g}; launches {json.dumps(launches)}")
+    if not bool(torch.isfinite(out[3]).all()):
+        raise AssertionError(f"BA via {label}: non-finite points")
+    return out, launches
+
+
+def phase_ba_solve(bench: dict, card: str) -> None:
+    from tpusfm_torch.ba import bundle_adjust as tba
+
     cfg = tba.BAConfig(max_iters=20, cg_iters=30, assume_sorted=True)
     forced = dataclasses.replace(cfg, converge_rtol=0.0)  # all 20 iterations, for the rate
-    C, P, O = bench["intr"].shape[0], bench["points"].shape[0], bench["obs_cam"].shape[0]
     costs = {}
     for name, c in (("kernels", cfg), ("plain", dataclasses.replace(cfg, impl="xla")),
                     ("kernels, 20 forced", forced),
-                    ("plain, 20 forced", dataclasses.replace(forced, impl="xla"))):
-        tba.bundle_adjust(cfg=dataclasses.replace(c, max_iters=1), **bench)  # warm-up
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = tba.bundle_adjust(cfg=c, **bench)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        its = int(out[4]["iterations"])
+                    ("plain, 20 forced", dataclasses.replace(forced, impl="xla")),
+                    ("kernels, schur_diag", dataclasses.replace(cfg, precond="schur_diag"))):
+        out, launches = _timed_solve(bench, c, name, card)
         costs[name] = float(out[4]["final_cost"])
-        print(f"BA solve at C={C} P={P} O={O} via {name} on {card}: {its} LM iterations in "
-              f"{dt:.3f} s = {its / dt:.3f} LM it/s; cost {float(out[4]['initial_cost']):.6g} "
-              f"-> {costs[name]:.6g}; launches {json.dumps(dict(ot.LAUNCHES))}")
-        if not bool(torch.isfinite(out[3]).all()):
-            raise AssertionError(f"BA via {name}: non-finite points")
-        if name.startswith("kernels") and any(n == 0 for n in ot.LAUNCHES.values()):
-            raise AssertionError(f"the kernel-path solve did not launch every kernel: "
-                                 f"{ot.LAUNCHES}")
+        need = BA_KERNELS + (("segsum_table_t",) if "schur_diag" in name else ())
+        if name.startswith("kernels") and any(launches[n] == 0 for n in need):
+            raise AssertionError(f"the {name} solve did not launch every kernel: {launches}")
     for run in ("", ", 20 forced"):
         ck, cp = costs["kernels" + run], costs["plain" + run]
         if not abs(ck - cp) <= 1e-2 * cp:
             raise AssertionError(f"kernel-path final cost {ck} vs plain {cp}{run}: more than "
                                  "1e-2 apart")
+    sd, hcc = costs["kernels, schur_diag"], costs["kernels"]
+    if not abs(sd - hcc) <= 1e-2 * hcc:
+        raise AssertionError(f"schur_diag solve's cost {sd} vs hcc {hcc}: more than 1e-2 apart")
+
+
+BROWN_LENS = (-0.10, 0.015, 0.0, 0.008, -0.006)  # [k1 k2 k3 t1 t2], test_camera_models.py:153
+
+
+def phase_brown(card: str, entries: dict) -> dict:
+    """Path B: Brown-T2 self-calibration of the bench problem through the
+    unfused kernel path and the plain path.  Returns the kernel solve's
+    last kernel calls."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.ba import bundle_adjust as tba
+    from tpusfm_torch.utils.synth_scene import point_sorted_ba_problem
+
+    prob = point_sorted_ba_problem(500, 50000, seed=3, arc_deg=350.0, vis_prob=0.06,
+                                   brown=BROWN_LENS)
+    bench = {k: torch.as_tensor(v, device="cuda") for k, v in prob.items()}
+    group = dict(cam_group=torch.zeros(bench["intr"].shape[0], dtype=torch.long, device="cuda"),
+                 n_groups=1)
+    cfg = tba.BAConfig(max_iters=20, cg_iters=30, assume_sorted=True, refine_intrinsics=True,
+                       camera_model="brown")
+    captured, res = {}, {}
+    for name, c in (("kernels (unfused), Brown-T2 self-calibrating", cfg),
+                    ("plain, Brown-T2 self-calibrating", dataclasses.replace(cfg, impl="xla"))):
+        with _recording(captured if name.startswith("kernels") else None) as (_, calls):
+            out, launches = _timed_solve(bench, c, name, card, **group)
+        g = out[0][0].cpu().numpy()
+        init, final = float(out[4]["initial_cost"]), float(out[4]["final_cost"])
+        print(f"  refined lens [k1 k2 k3 t1 t2] {np.round(g[4:], 5).tolist()} vs "
+              f"{list(BROWN_LENS)}; focal {g[0]:.3f}, {g[1]:.3f}; cost ratio {final / init:.5f}")
+        res[name] = final
+        if not final < 0.05 * init:
+            raise AssertionError(f"{name}: final cost {final} not under 0.05 x {init}")
+        for lane, bar in ((4, 0.01), (7, 0.003), (8, 0.003)):
+            if not abs(g[lane] - BROWN_LENS[lane - 4]) < bar:
+                raise AssertionError(f"{name}: lane {lane} = {g[lane]}, truth "
+                                     f"{BROWN_LENS[lane - 4]}, bar {bar}")
+        if name.startswith("kernels"):
+            need = [("schur_fwd_t", "D=6"), ("schur_fwd_t", "D=9"), ("schur_bwd_t", "D=6"),
+                    ("schur_bwd_t", "D=9"), ("segsum_table_t", "k=96"),
+                    ("segsum_table_t", "k=90"), ("segsum_sorted_t", "k=12")]
+            print(f"  kernel calls by variant: "
+                  f"{json.dumps({f'{n} {v}': c for (n, v), c in sorted(calls.items())})}")
+            if any(calls[k] == 0 for k in need) or launches["linearize_reduce_radial3_t"]:
+                raise AssertionError(f"Brown-T2 solve: not the unfused kernel path: {dict(calls)}")
+            for n in NEW_KERNELS[1:]:
+                entries[n]["launches"] = launches[n]
+    ck, cp = res.values()
+    if not abs(ck - cp) <= 1e-2 * cp:
+        raise AssertionError(f"Brown-T2 kernel-path cost {ck} vs plain {cp}: more than 1e-2 apart")
+    return captured
+
+
+def phase_new_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> None:
+    """K2's refine mode, K4 at D = 7 and 9, K5 at D = 6, 7 and 9, K6 and
+    K7 at the shapes paths A and B gave them."""
+    print(f"Self-calibrating and unfused kernels at their path shapes on {card}")
+    a2 = cap_a["linearize_reduce_radial3_t", "refine"][0]
+    _check_kernel("linearize_reduce_radial3_t", cap_a["linearize_reduce_radial3_t", "refine"],
+                  f"path A (C={a2[0].shape[0]} P={a2[2].shape[0]} O={a2[5].shape[0]}), refine",
+                  w_outputs=(2, 4))
+    _check_kernel("schur_bwd_t", cap_a["schur_bwd_t", "D=7"], "path A, D=7")
+    _check_kernel("schur_bwd_t", cap_b["schur_bwd_t", "D=9"], "path B, D=9")
+    _check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=6"], "path A, D=6")
+    entries["schur_fwd_t"].update(_check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=7"],
+                                                "path A, D=7"))
+    _check_kernel("schur_fwd_t", cap_b["schur_fwd_t", "D=9"], "path B, D=9")
+    entries["segsum_table_t"].update(_check_kernel(
+        "segsum_table_t", cap_b["segsum_table_t", "k=96"], "path B, cameras, k=96"))
+    _check_kernel("segsum_table_t", cap_b["segsum_table_t", "k=90"], "path B, one group, k=90")
+    entries["segsum_sorted_t"].update(_check_kernel(
+        "segsum_sorted_t", cap_b["segsum_sorted_t", "k=12"], "path B, point ranks, k=12"))
+
+
+# Path A starts from the true focal and holds fx to 1%.  On this sandbox's
+# CPU the reference's own run_sparse at 60 views of this rung, one group,
+# ended at fx -0.86%, fy -0.94% from a focal 2% off and from the truth alike
+# (PERF.md, PR 3): it cannot recover the focal to 0.5% here.  fy is printed
+# and not held: the orbit turns about the vertical axis with its cameras
+# near one horizontal plane, so stretching the scene vertically by s and fy
+# by 1/s leaves every projection unchanged up to the orbit's 0.3-unit
+# vertical wobble.
+FOCAL_START = 1.0
+FX_TOL = 0.01
 
 
 def main() -> int:
@@ -523,14 +748,22 @@ def main() -> int:
     for name, (src, line) in {
             "linearize_reduce_radial3_t": ("ba_linearize.cu", 1439),
             "schur_mv_t": ("ba_schur.cu", 2023),
-            "schur_bwd_t": ("ba_schur.cu", 1891)}.items():
+            "schur_bwd_t": ("ba_schur.cu", 1891),
+            "schur_fwd_t": ("ba_schur.cu", 1796),
+            "segsum_table_t": ("ba_segsum.cu", 1679),
+            "segsum_sorted_t": ("ba_segsum.cu", 1724)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
-                         "max_abs_err": None, "ms": None, "plain_ms": None}
+                         "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
+                         "bound_by": None, "library_ms": None}
     phase_slice20(entries["topk2_match"])
     captured = phase_slice200(entries)
+    cap_a = phase_selfcal200(entries, FOCAL_START)
     bench = phase_ba_kernels(card, captured, entries)
     phase_ba_solve(bench, card)
+    del bench
+    cap_b = phase_brown(card, entries)
+    phase_new_kernels(card, cap_a, cap_b, entries)
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

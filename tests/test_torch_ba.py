@@ -123,10 +123,3 @@ def test_ba_kernel_path_matches_reference(case):
         np.testing.assert_array_equal(tout[1].numpy()[~free], prob["cam_rot"][~free])
         np.testing.assert_array_equal(tout[2].numpy()[~free], prob["cam_t"][~free])
 
-
-def test_ba_kernel_path_refine_raises_naming_k5():
-    prob = _problem()
-    scene = convert.scene_from_numpy(prob, "cpu")
-    args = {k: getattr(scene, k) for k in _FIELDS}
-    with pytest.raises(NotImplementedError, match="K5"):
-        tba.bundle_adjust(cfg=tba.BAConfig(impl="pallas", refine_intrinsics=True), **args)

@@ -5,6 +5,8 @@ reference package, so it also runs on a machine that has only the port:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -87,7 +89,8 @@ def test_ba_beyond_dense_runs_kernels_on_card(dev):
     for name in ot.LAUNCHES:
         ot.LAUNCHES[name] = 0
     out = tba.bundle_adjust(cfg=tba.BAConfig(max_iters=10), **args)
-    assert all(n > 0 for n in ot.LAUNCHES.values()), ot.LAUNCHES
+    assert all(ot.LAUNCHES[k] > 0 for k in ("linearize_reduce_radial3_t", "schur_mv_t",
+                                            "schur_bwd_t")), ot.LAUNCHES
     plain = tba.bundle_adjust(cfg=tba.BAConfig(max_iters=10, impl="xla"), **args)
     kc, pc = float(out[4]["final_cost"]), float(plain[4]["final_cost"])
     assert kc < 0.1 * float(out[4]["initial_cost"])
@@ -95,12 +98,39 @@ def test_ba_beyond_dense_runs_kernels_on_card(dev):
     assert torch.isfinite(out[3]).all()
 
 
-def test_ba_kernel_path_raises_where_kernels_are_missing(dev):
-    args = _ba_args(point_sorted_ba_problem(70, 500, vis_prob=0.3), dev)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tba.bundle_adjust(cfg=tba.BAConfig(refine_intrinsics=True), **args)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tba.bundle_adjust(cfg=tba.BAConfig(precond="schur_diag"), **args)
+def test_ba_self_calibration_and_schur_diag_run_kernels_on_card(dev):
+    """70 cameras, one intrinsic group refined from a focal 2% off (K2's
+    refine mode, K5, K4 on the group), and the Schur-diagonal
+    preconditioner (K6): each reaches the plain path's cost within 1e-2."""
+    args = _ba_args(point_sorted_ba_problem(70, 2000, vis_prob=0.3), dev)
+    args["intr"][:, :2] *= 1.02
+    group = dict(cam_group=torch.zeros(70, dtype=torch.long, device=dev), n_groups=1)
+    for cfg, kw, kernels in (
+            (tba.BAConfig(max_iters=10, refine_intrinsics=True), group,
+             ("linearize_reduce_radial3_t", "schur_fwd_t", "schur_bwd_t")),
+            (tba.BAConfig(max_iters=10, precond="schur_diag"), {},
+             ("linearize_reduce_radial3_t", "segsum_table_t", "schur_mv_t"))):
+        for name in ot.LAUNCHES:
+            ot.LAUNCHES[name] = 0
+        out = tba.bundle_adjust(cfg=cfg, **args, **kw)
+        assert all(ot.LAUNCHES[k] > 0 for k in kernels), ot.LAUNCHES
+        plain = tba.bundle_adjust(cfg=dataclasses.replace(cfg, impl="xla"), **args, **kw)
+        kc, pc = float(out[4]["final_cost"]), float(plain[4]["final_cost"])
+        assert kc < 0.1 * float(out[4]["initial_cost"])
+        assert abs(kc - pc) <= 1e-2 * pc, (cfg, kc, pc)
+
+
+def test_ba_above_2048_cameras_takes_the_unfused_kernels(dev):
+    """2,100 cameras: K2 cannot hold the camera table, so linearization is
+    jacfwd reduced by K6 (cameras) and K7 (ranks); the cost falls."""
+    args = _ba_args(point_sorted_ba_problem(2100, 3000, vis_prob=0.05), dev)
+    for name in ot.LAUNCHES:
+        ot.LAUNCHES[name] = 0
+    out = tba.bundle_adjust(cfg=tba.BAConfig(max_iters=3), **args)
+    assert ot.LAUNCHES["linearize_reduce_radial3_t"] == 0
+    assert ot.LAUNCHES["segsum_table_t"] > 0 and ot.LAUNCHES["segsum_sorted_t"] > 0
+    assert float(out[4]["final_cost"]) < 0.5 * float(out[4]["initial_cost"])
+    assert torch.isfinite(out[3]).all()
 
 
 GAP = 200
@@ -144,7 +174,8 @@ def _oracle_close(got, f32, f64, what):
 
 
 def _f64(args):
-    return tuple(a.double() if a.is_floating_point() else a for a in args)
+    return tuple(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                 for a in args)
 
 
 @pytest.mark.parametrize("w_dtype", ["bf16", "f32"])
@@ -190,3 +221,55 @@ def test_k3_k4_match_float64_twin_and_repeat_bit_for_bit(dev, k2_inputs, with_hc
         assert torch.equal(b, ot.schur_bwd_t(Wd, cam, ranks, z, C))
         _oracle_close(b, ot.schur_bwd_t_reference(Wd, cam, ranks, z, C),
                       ot.schur_bwd_t_reference(Wd, cam, ranks, z.double(), C), f"bwd D={d}")
+
+
+@pytest.mark.parametrize("w_dtype", ["bf16", "f32"])
+def test_k2_refine_matches_float64_twin_and_repeats_bit_for_bit(dev, k2_inputs, w_dtype):
+    """One group holds every row, so K2's group pass sums many chunks."""
+    args = list(k2_inputs)
+    args[1] = args[1][:1]
+    args[4] = torch.zeros_like(args[4])
+    kw = dict(refine=True, refine_mask=(1.0,) * 7, huber_delta=4.0, w_dtype=w_dtype)
+    got = ot.linearize_reduce_radial3_t(*args, **kw)
+    again = ot.linearize_reduce_radial3_t(*args, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == 5 and all(torch.equal(a, b) for a, b in zip(got, again))
+    assert args[3].shape[0] > 4 * ot.CHUNK_ROWS
+    f32 = ot.linearize_reduce_radial3_t_reference(*args, **kw)
+    f64 = ot.linearize_reduce_radial3_t_reference(*_f64(args), **dict(kw, w_dtype="f32"))
+    for i, name in ((0, "camred"), (1, "ptred"), (3, "grpred")):
+        _oracle_close(got[i], f32[i], f64[i].double(), name)
+    for i in (2, 4):
+        w64 = f64[i].double() if w_dtype == "f32" else f64[i].to(torch.bfloat16).double()
+        ulp = torch.maximum(got[i].double().abs(), w64.abs()) * 2.0 ** -7
+        assert bool(((got[i].double() - w64).abs() <= ulp + 1e-6 * float(w64.abs().max())).all())
+
+
+def test_k4_k5_k6_k7_match_float64_twins_and_repeat_bit_for_bit(dev, k2_inputs):
+    """K5 at D = 6, 7, 9 (every lane of W counts), K4 with D = 9 over one
+    segment that holds every row (many chunks), K6 with k = 96 and ids
+    outside [0, n), K7 with k = 12 across the rank gap."""
+    cam, ranks = k2_inputs[3], k2_inputs[5]
+    O, C, P = cam.shape[0], 70, k2_inputs[2].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grp = torch.zeros_like(cam)
+
+    def check(fn, twin, args, what):
+        got = fn(*args)
+        assert torch.equal(got, fn(*args)), what
+        torch.cuda.synchronize()
+        _oracle_close(got, twin(*args), twin(*_f64(args)), what)
+
+    for d in (6, 7, 9):
+        W = torch.randn((3 * d, O), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((C, d), generator=gen, device=dev)
+        check(ot.schur_fwd_t, ot.schur_fwd_t_reference, (W, cam, ranks, v, P), f"K5 D={d}")
+    z = torch.randn((P, 3), generator=gen, device=dev)
+    check(ot.schur_bwd_t, ot.schur_bwd_t_reference, (W, grp, ranks, z, 1), "K4 D=9, one group")
+    vals = torch.randn((96, O), generator=gen, device=dev)
+    ids = cam.clone()
+    ids[::13] = -1
+    ids[5::17] = C + 2
+    check(ot.segsum_table_t, ot.segsum_table_t_reference, (vals, ids, C), "K6 k=96")
+    check(ot.segsum_table_t, ot.segsum_table_t_reference, (vals[:36], grp, 1), "K6, one segment")
+    check(ot.segsum_sorted_t, ot.segsum_sorted_t_reference, (vals[:12], ranks, P), "K7 k=12")

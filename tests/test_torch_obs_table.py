@@ -1,4 +1,4 @@
-"""Twins of the BA kernels K2-K4 (tpusfm_torch/ops/obs_table.py) and the
+"""Twins of the BA kernels K2-K7 (tpusfm_torch/ops/obs_table.py) and the
 per-solve sort against the reference's tpusfm/ops/obs_table.py on the same
 numpy inputs: a small geometrically valid BA table (orbit scene, 7
 cameras), rank-sorted, with masked rows, invalid rows at rank 2^30 and a
@@ -124,10 +124,37 @@ def test_linearize_reduce_float64_twin_is_the_oracle(tables):
     _close(got[1], want[1], "ptred")
 
 
-def test_linearize_reduce_refine_mode_raises(tables):
-    with pytest.raises(NotImplementedError, match="K5"):
-        tot.linearize_reduce_radial3_t(*_k2_args(tables, tot), refine=True,
-                                       refine_mask=(1.0,) * 7, huber_delta=4.0)
+@pytest.mark.parametrize("mask", ["all", "focal"])
+def test_linearize_reduce_refine_twin_matches_reference(tables, mask):
+    """Refine mode: camred (C, 70), grpred (G, 35), W and Wg against the
+    reference's refine=True delegate; with the "focal" mask every lane past
+    fy is exactly zero in Hcg, Hgg, gg and Wg, as the reference's multiply
+    by the mask makes it."""
+    rm = (1.0,) * 7 if mask == "all" else (1.0, 1.0) + (0.0,) * 5
+    kw = dict(refine=True, refine_mask=rm, huber_delta=4.0, w_dtype="f32")
+    want = jot.linearize_reduce_radial3_t(*_k2_args(tables, jot), interpret=True, **kw)
+    got = tot.linearize_reduce_radial3_t(*_k2_args(tables, tot), **kw)
+    assert tuple(got[0].shape) == (tables["C"], 70) and tuple(got[3].shape) == (tables["C"], 35)
+    for g, w, name in zip(got, want, ("camred", "ptred", "wcT", "grpred", "wgT")):
+        _close(g, w, name)
+    if mask == "focal":
+        hcg = got[0][:, 27:69].reshape(-1, 6, 7)
+        assert torch.all(hcg[:, :, 2:] == 0) and torch.any(hcg[:, :, :2] != 0)
+        hgg_free = [k for k, (i, j) in enumerate((i, j) for i in range(7) for j in range(i, 7))
+                    if i < 2 and j < 2]
+        assert torch.all(torch.cat([got[3][:, [k for k in range(28) if k not in hgg_free]],
+                                    got[3][:, 30:]], 1) == 0)
+        assert torch.all(got[4][6:] == 0)
+
+
+def test_linearize_reduce_refine_float64_twin_is_the_oracle(tables):
+    kw = dict(refine=True, refine_mask=(1.0,) * 7, huber_delta=4.0, w_dtype="f32")
+    want = jot.linearize_reduce_radial3_t(*_k2_args(tables, jot), interpret=True, **kw)
+    args = tuple(a.double() if a.is_floating_point() else a for a in _k2_args(tables, tot))
+    got = tot.linearize_reduce_radial3_t(*args, **kw)
+    assert got[3].dtype == torch.float64
+    for i, name in ((0, "camred"), (3, "grpred")):
+        _close(got[i], want[i], name)
 
 
 def _schur_inputs(tables, d=6, seed=0):
@@ -222,3 +249,92 @@ def test_layout_covers_every_row_once(tables):
     for c in range(tables["C"]):
         rows = perm[st[c]:st[c + 1]]
         assert (np.diff(rows) > 0).all() and (tables["obs_cam"][rows] == c).all()
+
+
+def _dense_ranks(tables):
+    """The table's ranks with the gap closed: the reference's span kernels
+    (interpret=True runs them for K5) cannot reach across a gap wider than
+    127 ranks."""
+    ranks = tables["ranks"].copy()
+    ranks[ranks >= 30 + GAP] -= GAP
+    ranks[ranks == 2 ** 30 - GAP] = 2 ** 30
+    return ranks
+
+
+@pytest.mark.parametrize("d", [6, 7, 9])
+def test_schur_fwd_twin_against_reference(tables, d):
+    """K5's twin sums W^T v over all D rows of W.  The reference's kernel
+    sums only the first six (tpusfm/ops/obs_table.py:1811-1815): at D = 6
+    the two agree; at D = 7 and 9 the port equals the reference plus the
+    lanes it drops, computed here in float64, which pins the deviation.
+    Tolerance: float32 sums in different orders (module docstring)."""
+    s = _schur_inputs(tables, d=d, seed=10 + d)
+    ranks = _dense_ranks(tables)
+    P = int(ranks[ranks < 2 ** 30].max()) + 1
+    vtab = np.random.default_rng(d).normal(size=(tables["C"], d)).astype(np.float32)
+    want = np.asarray(jot.schur_fwd_t(jnp.asarray(s["wT"]), jnp.asarray(tables["obs_cam"]),
+                                      jnp.asarray(ranks), jnp.asarray(vtab), P, interpret=True))
+    got = tot.schur_fwd_t(torch.as_tensor(s["wT"]), torch.as_tensor(tables["obs_cam"]),
+                          torch.as_tensor(ranks), torch.as_tensor(vtab), P)
+    assert tuple(got.shape) == (P, 3)
+    W = s["wT"].astype(np.float64).reshape(d, 3, -1)
+    live = ranks < P
+    dropped = np.einsum("dko,od->ok", W[6:], vtab[tables["obs_cam"]].astype(np.float64)[:, 6:])
+    extra = np.zeros((P, 3))
+    np.add.at(extra, ranks[live], dropped[live])
+    if d > 6:
+        assert np.abs(extra).max() > 1.0  # the dropped lanes are not negligible
+    _close(got, want + extra, f"schur_fwd D={d}")
+
+
+def test_segsum_table_twin_matches_reference_with_out_of_range_ids():
+    r = np.random.default_rng(11)
+    O, n, k = 700, 9, 42
+    vals = r.normal(size=(k, O)).astype(np.float32)
+    idx = r.integers(0, n, O).astype(np.int32)
+    idx[r.random(O) < 0.05] = -1
+    idx[r.random(O) < 0.05] = n + 3
+    want = jot.segsum_table_t(jnp.asarray(vals), jnp.asarray(idx), n, interpret=True)
+    got = tot.segsum_table_t(torch.as_tensor(vals), torch.as_tensor(idx), n)
+    assert tuple(got.shape) == (n, k)
+    _close(got, want, "segsum_table_t")
+
+
+def test_segsum_sorted_twin_matches_reference_at_dense_ranks(tables):
+    ranks = _dense_ranks(tables)
+    P = int(ranks[ranks < 2 ** 30].max()) + 1
+    vals = np.random.default_rng(12).normal(size=(12, len(ranks))).astype(np.float32)
+    want = jot.segsum_sorted_t(jnp.asarray(vals), jnp.asarray(ranks), P, interpret=True)
+    got = tot.segsum_sorted_t(torch.as_tensor(vals), torch.as_tensor(ranks), P)
+    _close(got, want, "segsum_sorted_t")
+
+
+def test_segsum_sorted_twin_sums_across_a_rank_gap(tables):
+    """Ranks with the gap of 200 (and invalid rows at 2^30) against numpy in
+    float64: rows past the gap are summed, rows at ranks >= p dropped."""
+    ranks, P = tables["ranks"], tables["P"]
+    vals = np.random.default_rng(13).normal(size=(12, len(ranks))).astype(np.float32)
+    got = tot.segsum_sorted_t(torch.as_tensor(vals), torch.as_tensor(ranks), P)
+    want = np.zeros((P, 12))
+    live = ranks < P
+    np.add.at(want, ranks[live], vals.T[live].astype(np.float64))
+    assert np.abs(want[ranks[live][-1]]).max() > 0
+    _close(got, want, "segsum_sorted_t across the gap")
+
+
+def test_layout_chunks_cut_each_segment_in_order():
+    """The two-level sums' chunk numbering: segment c owns
+    ceil(rows_c / CHUNK_ROWS) consecutive chunks (none when empty), and the
+    bound covers them all."""
+    r = np.random.default_rng(14)
+    n, big = 5, tot.CHUNK_ROWS * 2 + 17
+    ids = np.concatenate([np.zeros(big, np.int32), r.integers(2, n, 300).astype(np.int32),
+                          np.full(7, n + 1, np.int32)])
+    r.shuffle(ids)
+    lay = tot.obs_layout(torch.as_tensor(ids), n)
+    counts = np.bincount(ids[ids < n], minlength=n)
+    assert counts[1] == 0
+    np.testing.assert_array_equal(
+        lay.chunk_start.numpy(),
+        np.concatenate([[0], np.cumsum(-(-counts // tot.CHUNK_ROWS))]))
+    assert lay.chunk_start[-1] <= lay.chunk_bound

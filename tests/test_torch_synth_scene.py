@@ -28,3 +28,30 @@ def test_orbit_scene_equals_reference(kw):
         else:
             np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
             assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+
+
+def test_brown_ba_problem_projects_through_the_reference_lens():
+    """point_sorted_ba_problem(brown=...) keeps the pinhole problem's
+    scene, visibility and start, and its observations are the reference
+    camera model's Brown-T2 projections of the true scene plus the stated
+    0.5 px noise (every residual under 5 sigma, the spread near 0.5)."""
+    import jax.numpy as jnp
+
+    from tpusfm.core import camera as jcam
+    from tpusfm_torch.utils.synth_scene import point_sorted_ba_problem
+
+    lens = (-0.10, 0.015, 0.0, 0.008, -0.006)
+    pin = point_sorted_ba_problem(12, 400, vis_prob=0.5)
+    got = point_sorted_ba_problem(12, 400, vis_prob=0.5, brown=lens)
+    for k in ("obs_cam", "obs_pt", "cam_rot", "cam_t", "points"):
+        np.testing.assert_array_equal(got[k], pin[k], err_msg=k)
+    assert got["intr"].shape == (12, 9) and not got["intr"][:, 4:].any()
+    s = orbit_scene(n_cams=12, n_points=400, seed=3, arc_deg=350.0, vis_prob=0.5)
+    truth = s["points"][np.unique(s["obs_pt"])]  # point_sorted's ids: observed points in order
+    Xc = np.einsum("oij,oj->oi", s["R"][got["obs_cam"]], truth[got["obs_pt"]]) \
+        + s["t"][got["obs_cam"]]
+    intr = np.concatenate([s["intr"][:4], lens]).astype(np.float32)
+    want = np.asarray(jcam.camera_to_pixel(jnp.asarray(np.tile(intr, (len(Xc), 1))),
+                                           jnp.asarray(Xc.astype(np.float32))))
+    res = got["obs_uv"] - want
+    assert np.abs(res).max() < 2.5 and 0.4 < res.std() < 0.6

@@ -13,16 +13,16 @@ reference's from ``jax.jacfwd``; nothing needs autograd.
 The reference's Pallas path ``_lm_pallas`` becomes ``_lm_kernels``: the
 observation table is point-sorted once per solve, and linearization, the
 reduced right-hand side and every CG matvec run through the hand-written
-CUDA kernels K2-K4 (``ops/obs_table.py``; on CPU tensors, their plain
+CUDA kernels K2-K7 (``ops/obs_table.py``; on CPU tensors, their plain
 twins).  It runs for ``impl="pallas"`` on any device, and for
 ``impl="auto"`` on a CUDA device when the dense solve is not eligible (more
-than 64 cameras), where the reference runs those kernels on its chip.  Of
-that path this port covers the single-device mode with intrinsics held and
-RADIAL3 cameras; refining intrinsics there needs kernel K5, and more than
-2048 cameras or groups or another camera model the unfused kernels K6/K7,
-which are not ported and raise.  On the CPU, ``impl="auto"`` takes the
-plain PCG path, as the reference's ``impl="xla"`` does.  The LM and CG
-loops are Python loops that read one convergence flag from the device per
+than 64 cameras), where the reference runs those kernels on its chip.  It
+covers the reference's single-device contract: intrinsics held or refined
+per group, RADIAL3 through the fused K2 or any camera model (and more than
+2048 cameras or groups) through jacfwd and the segment sums K6/K7, and
+both preconditioners.  On the CPU, ``impl="auto"`` takes the plain PCG
+path, as the reference's ``impl="xla"`` does.  The LM and CG loops are
+Python loops that read one convergence flag from the device per
 iteration.
 """
 
@@ -57,7 +57,7 @@ class BAConfig:
     lambda_max: float = 1e8
     converge_rtol: float = 3e-6    # accepted-step relative improvement = converged
     fix_first_cam: bool = True     # gauge: camera 0's pose is held
-    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K4)
+    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K7)
     precond: str = "hcc"           # kernel path's PCG preconditioner: "hcc" (damped Hcc
                                    # blocks) | "schur_diag" (exact S diagonal blocks)
     w_dtype: str = "bf16"          # kernel path: storage of the coupling table W ("bf16" | "f32")
@@ -346,7 +346,7 @@ def _lm_loop(linearize, solve, ps, gi, pts, refine: bool, cfg: BAConfig, max_ite
 
 
 # ---------------------------------------------------------------------------
-# Kernel path: every observation-table pass through K2-K4
+# Kernel path: every observation-table pass through K2-K7
 # ---------------------------------------------------------------------------
 
 def camera_table(ps: torch.Tensor) -> torch.Tensor:
@@ -358,35 +358,28 @@ def camera_table(ps: torch.Tensor) -> torch.Tensor:
     return torch.cat([ps[:, 3:6], R.reshape(C, 9), Jr.reshape(C, 9)], 1)
 
 
-def _lm_kernels(pose0, gintr0, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, obs_uv, obs_w,
-                C, G, cfg: BAConfig, max_iters: int, prior_pos=None, prior_w=None):
+def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam,
+                obs_grp, obs_pt, obs_uv, obs_w, C, G, cfg: BAConfig, max_iters: int,
+                prior_pos=None, prior_w=None):
     """Counterpart of the reference's ``_lm_pallas`` in its single-device,
-    rank-space mode with intrinsics held: the table is point-sorted and
-    rank-compacted once per solve (or taken as sorted under
-    ``assume_sorted``), the whole point side of the state lives in rank
-    space, and each linearization (K2), right-hand side (K4) and CG matvec
-    (K3) is one kernel call.  Returns (ps, gi, pts, lambda, initial cost,
-    final cost, iterations)."""
-    if cfg.refine_intrinsics:
-        raise NotImplementedError(
-            "the BA kernel path with refine_intrinsics=True needs K2's refine mode and "
-            "kernel K5 (schur_fwd_t), which are not ported yet")
-    E = gintr0.shape[-1]
-    if C > 2048 or G > 2048 or E != INTR_DIM or cfg.camera_model not in ("auto", "radial3"):
-        raise NotImplementedError(
-            f"the BA kernel path with C={C}, G={G} and a {E}-lane {cfg.camera_model!r} camera "
-            "model runs the unfused kernels K6 (segsum_table_t) and K7 (segsum_sorted_t), "
-            "which are not ported yet; the fused K2 takes RADIAL3 and up to 2048 cameras "
-            "and groups")
+    rank-space mode: the table is point-sorted and rank-compacted once per
+    solve (or taken as sorted under ``assume_sorted``), the whole point side
+    of the state lives in rank space, and every pass over the table is a
+    kernel call.  Linearization is K2 (fused, RADIAL3 with at most 2048
+    cameras and groups), else per-observation jacfwd Jacobians reduced
+    through K6 (cameras, groups) and K7 (point ranks); the right-hand side
+    is K4; a CG matvec is K3, or with refined intrinsics K5 on Wc and Wg,
+    then K4 on both.  Returns (ps, gi, pts, lambda, initial cost, final
+    cost, iterations)."""
     if cfg.precond not in ("hcc", "schur_diag"):
         raise ValueError(f"precond must be 'hcc' or 'schur_diag', got {cfg.precond!r}")
     dev = pose0.device
-    if cfg.precond == "schur_diag" and dev.type != "cpu":
-        raise NotImplementedError(
-            "precond='schur_diag' reduces per camera through kernel K6 (segsum_table_t), "
-            "which is not ported yet; use precond='hcc'")
     P = points.shape[0]
-    D = POSE_DIM
+    D, E = POSE_DIM, gintr0.shape[-1]
+    refine = cfg.refine_intrinsics
+    # K2's closed-form Jacobians are RADIAL3 (reference :668-669).
+    fused = (C <= 2048 and G <= 2048 and E == INTR_DIM
+             and cfg.camera_model in ("auto", "radial3"))
     if cfg.assume_sorted:
         # Rank IS the point id: no sort, and fractional weights stand.
         obs_pt = obs_pt.to(torch.int32)
@@ -414,18 +407,66 @@ def _lm_kernels(pose0, gintr0, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, 
     obs_uvT = obs_uv.T.contiguous()
     safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
     layout = ot.obs_layout(obs_cam, C, ranks, P)
+    grp_layout = ot.obs_layout(obs_grp, G) if refine else None
+    wdt = ot._w_torch_dtype(cfg.w_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     full66 = torch.tensor(ot._FULL66, device=dev)
     full33 = torch.tensor(ot._FULL33, device=dev)
+    full77 = torch.tensor(ot._FULL77, device=dev)
 
-    def linearize(ps, gi, pts):
-        camred, ptred, Wc = ot.linearize_reduce_radial3_t(
-            camera_table(ps), gi, pts, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine=False,
+    def linearize_fused(ps, gi, pts):
+        outs = ot.linearize_reduce_radial3_t(
+            camera_table(ps), gi, pts, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine=refine,
             refine_mask=cfg.refine_mask(), huber_delta=cfg.huber_delta, w_dtype=cfg.w_dtype,
-            layout=layout)
+            layout=layout, grp_layout=grp_layout)
+        camred, ptred, Wc = outs[:3]
         sys = {"Hcc": camred[:, full66].reshape(C, D, D), "gc": camred[:, 21:27], "Wc": Wc,
                "Hpp": ptred[:, full33].reshape(P, 3, 3), "gp": ptred[:, 6:9]}
-        cost = torch.sum(camred[:, -1])
+        if refine:
+            grpred, sys["Wg"] = outs[3:]
+            sys["Hcg"] = camred[:, 27:27 + D * E].reshape(C, D, E)
+            sys["Hgg"] = grpred[:, full77].reshape(G, E, E)
+            sys["gg"] = grpred[:, 28:35]
+        return sys, torch.sum(camred[:, -1])
+
+    def linearize_unfused(ps, gi, pts):
+        # Per-observation jacfwd Jacobians (XLA in the reference too),
+        # reduced per camera and group by K6 and per rank by K7 (:768-818).
+        r, Jc, Jg, Jp = _obs_jacobians(ot._gather_rows(ps, obs_cam), ot._gather_rows(gi, obs_grp),
+                                       ot._gather_rows(pts, ranks), obs_uv, refine,
+                                       cfg.camera_model)
+        cost = robust_cost(r, obs_w, cfg.huber_delta)
+        w = (_huber_weight(r, cfg.huber_delta) * obs_w)[:, None]
+        r = r * w
+        Jc = Jc * w[..., None]
+        Jp = Jp * w[..., None]
+        camvals = [torch.einsum("oki,okj->oij", Jc, Jc).reshape(-1, D * D),
+                   torch.einsum("oki,ok->oi", Jc, r)]
+        if refine:
+            Jg = Jg * (w[..., None] * refine_m[None, None, :])
+            camvals.append(torch.einsum("oki,okj->oij", Jc, Jg).reshape(-1, D * E))
+        camred = ot.segsum_table_t(torch.cat(camvals, 1).T.contiguous(), obs_cam, C,
+                                   layout=layout)
+        ptvals = torch.cat([torch.einsum("oki,okj->oij", Jp, Jp).reshape(-1, 9),
+                            torch.einsum("oki,ok->oi", Jp, r)], 1)
+        ptred = ot.segsum_sorted_t(ptvals.T.contiguous(), ranks, P, layout=layout)
+        sys = {"Hcc": camred[:, :D * D].reshape(C, D, D), "gc": camred[:, D * D:D * D + D],
+               "Hpp": ptred[:, :9].reshape(P, 3, 3), "gp": ptred[:, 9:],
+               "Wc": torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3).to(wdt).T
+               .contiguous()}
+        if refine:
+            sys["Hcg"] = camred[:, D * D + D:].reshape(C, D, E)
+            grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
+                                 torch.einsum("oki,ok->oi", Jg, r)], 1)
+            grpred = ot.segsum_table_t(grpvals.T.contiguous(), obs_grp, G, layout=grp_layout)
+            sys["Hgg"] = grpred[:, :E * E].reshape(G, E, E)
+            sys["gg"] = grpred[:, E * E:]
+            sys["Wg"] = torch.einsum("oki,okj->oij", Jg, Jp).reshape(-1, E * 3).to(wdt).T \
+                .contiguous()
+        return sys, cost
+
+    def linearize(ps, gi, pts):
+        sys, cost = (linearize_fused if fused else linearize_unfused)(ps, gi, pts)
         if prior_pos is not None:
             dH, dg, dcost = _prior_terms(ps, prior_pos, prior_w)
             sys["Hcc"] = sys["Hcc"] + dH
@@ -440,32 +481,56 @@ def _lm_kernels(pose0, gintr0, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, 
         z = torch.einsum("pij,pj->pi", Hinv, gp)
         rhs = {"c": (-sys["gc"] + ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout))
                * upd_c}
-        if cfg.precond == "schur_diag":  # exact S diagonal blocks (CPU only, see above)
+        if refine:
+            Hcg, Hgg_d, Wg = sys["Hcg"], _damp_blocks(sys["Hgg"], lam), sys["Wg"]
+            rhs["g"] = (-sys["gg"] + ot.schur_bwd_t(Wg, obs_grp, ranks, z, G, layout=grp_layout)
+                        ) * upd_g
+            M_inv_g = _invD(Hgg_d)
+        if cfg.precond == "schur_diag":  # exact S diagonal blocks, reduced by K6
             W3 = Wc.to(torch.float32).T.reshape(-1, D, 3)
-            Hinv_o = ot._gather_rows(Hinv, ranks)
-            contrib = torch.einsum("oij,ojk,olk->oil", W3, Hinv_o, W3)
-            M_inv_c = _invD(Hcc_d - ot._segsum_drop(contrib, obs_cam, C))
+            contrib = torch.einsum("oij,ojk,olk->oil", W3, ot._gather_rows(Hinv, ranks), W3)
+            M_inv_c = _invD(Hcc_d - ot.segsum_table_t(
+                contrib.reshape(-1, D * D).T.contiguous(), obs_cam, C, layout=layout)
+                .reshape(C, D, D))
         else:  # damped Hcc blocks: one obs-table pass fewer
             M_inv_c = _invD(Hcc_d)
 
         def apply_M(v):
-            return {"c": torch.einsum("cij,cj->ci", M_inv_c, v["c"])}
+            out = {"c": torch.einsum("cij,cj->ci", M_inv_c, v["c"])}
+            if refine:
+                out["g"] = torch.einsum("gij,gj->gi", M_inv_g, v["g"])
+            return out
 
         def mv(v):
-            sv, y = ot.schur_mv_t(Wc, obs_cam, ranks, v["c"] * upd_c, Hinv, P, hcc_d=Hcc_d,
-                                  layout=layout)
-            return {"c": sv * upd_c}, y
+            vc = v["c"] * upd_c
+            if not refine:
+                sv, y = ot.schur_mv_t(Wc, obs_cam, ranks, vc, Hinv, P, hcc_d=Hcc_d,
+                                      layout=layout)
+                return {"c": sv * upd_c}, y
+            # The self-calibrating matvec (:904-926): K5 on both W tables,
+            # Hpp^-1, K4 on both; the C- and G-row terms stay plain torch.
+            vg = v["g"] * upd_g
+            y = (ot.schur_fwd_t(Wc, obs_cam, ranks, vc, P, layout=layout)
+                 + ot.schur_fwd_t(Wg, obs_grp, ranks, vg, P, layout=layout))
+            zz = torch.einsum("pij,pj->pi", Hinv, y)
+            bc = ot.schur_bwd_t(Wc, obs_cam, ranks, zz, C, layout=layout)
+            bg = ot.schur_bwd_t(Wg, obs_grp, ranks, zz, G, layout=grp_layout)
+            Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc) + torch.einsum("cde,ce->cd", Hcg,
+                                                                       vg[cam_group])
+            Hvg = (torch.einsum("gef,gf->ge", Hgg_d, vg)
+                   + segment_sum(torch.einsum("cde,cd->ce", Hcg, vc), cam_group, G))
+            return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}, y
 
         d, Wtd = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol,
                       aux0=torch.zeros((P, 3), dtype=torch.float32, device=dev))
         dp = -torch.einsum("pij,pj->pi", Hinv, gp + Wtd) * pt_upd_state
-        return d["c"] * upd_c, None, dp
+        return d["c"] * upd_c, d["g"] * upd_g if refine else None, dp
 
     # Points enter rank space once and leave it once.
     pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
     pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
     ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr0,
-                                                       pts_state0, False, cfg, max_iters)
+                                                       pts_state0, refine, cfg, max_iters)
     # Rows of valid ranks go back to their points; the rest keep their input.
     scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
     out = torch.cat([points, points[:1]], 0).index_copy_(0, scatter_ids, pts)[:P]
@@ -609,8 +674,8 @@ def bundle_adjust(
     mi = cfg.max_iters if max_iters is None else int(max_iters)
     if cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok):
         ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
-            pose0, gintr, points, upd_c, pt_upd, obs_cam, obs_grp, obs_pt, obs_uv, obs_w, C, G,
-            cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
+            pose0, gintr, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam, obs_grp,
+            obs_pt, obs_uv, obs_w, C, G, cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
     else:
         ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr, points,
                                                            refine, cfg, mi)

@@ -1,4 +1,16 @@
-// Helpers shared by the bundle-adjustment kernels (ba_linearize.cu, ba_schur.cu).
+// Helpers shared by the bundle-adjustment kernels (ba_linearize.cu,
+// ba_schur.cu, ba_segsum.cu).
+//
+// Two-level segment sums.  A segment (a camera, a group) may hold every row
+// of the table: one intrinsic group holds 1.5M rows at the 500-camera bench
+// shape, too much for the one block per segment that gives a fixed
+// summation order.  So a segment's rows (seg_perm[seg_start[s] ..
+// seg_start[s+1]), in increasing row order) are cut into chunks of
+// chunk_rows rows, numbered chunk_start[s] .. chunk_start[s+1] over all
+// segments (ObsLayout in ops/obs_table.py).  Pass 1 gives each chunk one
+// block, which sums its rows with a fixed shuffle tree and writes a partial
+// row; pass 2 (chunk_finish_kernel) adds each segment's partials in chunk
+// order.  No atomics, so repeats give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +55,55 @@ __device__ __forceinline__ void block_sum(const float (&acc)[K], float* sums) {
     sums[threadIdx.x] = s;
   }
   __syncthreads();
+}
+
+// The rows [begin, end) of seg_perm that chunk b covers and its segment;
+// false when b is past the last chunk (grids are sized by a bound).
+struct ChunkRows {
+  int seg, begin, end;
+};
+
+__device__ __forceinline__ bool chunk_rows_of(const int* __restrict__ seg_start,
+                                              const int* __restrict__ chunk_start, int n,
+                                              int chunk_rows, int b, ChunkRows& c) {
+  if (b >= chunk_start[n]) return false;
+  // The largest s with chunk_start[s] <= b; empty segments share their
+  // successor's start, so s is the segment that owns chunk b.
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (chunk_start[mid] <= b)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  c.seg = lo;
+  c.begin = seg_start[lo] + (b - chunk_start[lo]) * chunk_rows;
+  c.end = min(c.begin + chunk_rows, seg_start[lo + 1]);
+  return true;
+}
+
+// Pass 2 of a two-level segment sum: out[s][v] = sum over the chunks of
+// segment s, in order, of part[chunk][v] (k values per row); 0 for an empty
+// segment.  One thread per output value.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chunk_finish_kernel(const T* __restrict__ part, const int* __restrict__ chunk_start, int n, int k,
+                    T* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n * k) return;
+  const int s = i / k, v = i - s * k;
+  T acc = 0;
+  const int end = chunk_start[s + 1];
+  for (int c = chunk_start[s]; c < end; ++c) acc += part[(size_t)c * k + v];
+  out[i] = acc;
+}
+
+inline int launch_chunk_finish(const float* part, const int* chunk_start, int n, int k,
+                               float* out, cudaStream_t stream) {
+  chunk_finish_kernel<float><<<(n * k + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, chunk_start, n, k, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tpusfm_ba

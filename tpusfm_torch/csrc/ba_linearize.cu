@@ -2,33 +2,42 @@
 //
 // Replaces the TPU kernel `_linearize_reduce_t_kernel` of
 // tpusfm/ops/obs_table.py (wrapper `linearize_reduce_radial3_t`,
-// obs_table.py:1532; per-observation math `_linearize_math_t` :1129), in its
-// refine=False mode.  For every observation of a rank-sorted table it
-// computes the RADIAL3 reprojection residual, the closed-form pose and
-// point Jacobians and the Huber IRLS weight, and returns
+// obs_table.py:1532; per-observation math `_linearize_math_t` :1129), in both
+// of its modes.  For every observation of a rank-sorted table it computes
+// the RADIAL3 reprojection residual, the closed-form pose and point
+// Jacobians and the Huber IRLS weight, and returns
 //     camred (C, 28) = per camera [Hcc upper 21 | gc 6 | Huber cost],
 //     ptred  (P, 9)  = per rank   [Hpp upper 6 | gp 3],
 //     wcT    (18, O) = W_o = Jc^T Jp per observation (bf16 or f32).
-// The per-observation value tables never reach device memory; only W does
-// (the CG loop reads it every matvec).
+// In refine mode (self-calibration) the intrinsic Jacobian Jg joins, each
+// of its 7 lanes times the static refine mask (:1192-1207), so masked lanes
+// give exact zeros, and the outputs become
+//     camred (C, 70) = [Hcc 21 | gc 6 | Hcg row-major 42 | cost],
+//     grpred (G, 35) = per group [Hgg upper 28 | gg 7],
+//     wgT    (21, O) = Wg_o = Jg^T Jp per observation.
+// The per-observation value tables never reach device memory; only the W
+// tables do (the CG loop reads them every matvec).
 //
-// What bounds it: about 300 FLOPs of per-observation math in each of two
-// passes, plus ~170 for the products, against ~100 bytes moved per
-// observation (ids, uv, weight, point and the bf16 W row) and more in
-// 32-byte sectors, since the camera pass gathers rows through a
+// What bounds it: about 300 FLOPs of per-observation math in each pass
+// (refine adds ~100 for Jg and its products), against ~100 bytes moved per
+// observation (ids, uv, weight, point, the bf16 W rows) and more in 32-byte
+// sectors, since the camera and group passes gather rows through a
 // permutation: a few FLOPs per byte, so memory- and latency-bound on this
 // card.  None of the TPU machinery (one-hot MXU contractions, 128-lane
 // windows, the three-way bf16 split) carries over: rows and tables are
 // indexed directly, so ranks need not be dense.
 //
-// Determinism: no atomics.  Pass 1, one thread per rank, walks the rank's
-// rows [rank_start[r], rank_start[r+1]) in order, writes W and sums Hpp/gp
-// in registers.  Rows outside every rank range (rank >= P, e.g. invalid
-// rows at 2^30) get W from a grid-stride tail and add to no point.  Pass 2,
-// one block per camera, walks the camera's rows through a stable
-// permutation (thread t takes rows t, t + 256, ...), recomputes the same
-// math and sums the 28 camera values with a fixed shuffle tree.  Two calls
-// on the same inputs therefore give the same bits.
+// Determinism: no atomics.  The rank pass, one thread per rank, walks the
+// rank's rows [rank_start[r], rank_start[r+1]) in order, writes W (and Wg)
+// and sums Hpp/gp in registers.  Rows outside every rank range (rank >= P,
+// e.g. invalid rows at 2^30) get W from a grid-stride tail and add to no
+// point.  The camera pass, one block per camera, walks the camera's rows
+// through a stable permutation (thread t takes rows t, t + 256, ...),
+// recomputes the same math and sums the camera values with a fixed shuffle
+// tree.  The group pass recomputes it once more over the group's rows; one
+// group usually holds every row (one physical camera), so it is a two-level
+// sum over fixed chunks of those rows (ba_common.cuh).  Two calls on the
+// same inputs therefore give the same bits.
 
 #include "ba_common.cuh"
 
@@ -39,19 +48,26 @@ using namespace tpusfm_ba;
 constexpr float kZEps = 1e-8f;   // |z| floor (obs_table.py:1377)
 constexpr int kCamDim = 21;      // [t (3) | R row-major (9) | Jr row-major (9)]
 constexpr int kTailBlocks = 64;  // grid-stride blocks for rows outside every rank
+constexpr int kGrpVals = 35;     // [Hgg upper 28 | gg 7]
+
+struct RefineMask {
+  float m[7];
+};
 
 struct ObsLin {
   float jcu[6], jcv[6];  // weighted d(u, v)/d pose [aa | t]
   float jpu[3], jpv[3];  // weighted d(u, v)/d point
+  float jgu[7], jgv[7];  // weighted, masked d(u, v)/d intrinsics (refine mode only)
   float ru, rv;          // weighted residual
   float cost;            // Huber cost of the unweighted residual times w_in
 };
 
-// _linearize_math_t (obs_table.py:1129-1259), refine=False, for one row.
+// _linearize_math_t (obs_table.py:1129-1259) for one row.
+template <bool kRefine>
 __device__ __forceinline__ void linearize_obs(const float* __restrict__ cam,
                                               const float* __restrict__ in, float X0, float X1,
                                               float X2, float u, float v, float w_in, float delta,
-                                              ObsLin& o) {
+                                              const RefineMask& mask, ObsLin& o) {
   const float* R = cam + 3;
   const float* Jr = cam + 12;
   const float Xc1 = R[0] * X0 + R[1] * X1 + R[2] * X2 + cam[0];
@@ -101,6 +117,26 @@ __device__ __forceinline__ void linearize_obs(const float* __restrict__ cam,
     o.jpu[j] = (Lu[0] * R[0 * 3 + j] + Lu[1] * R[1 * 3 + j] + Lu[2] * R[2 * 3 + j]) * w;
     o.jpv[j] = (Lv[0] * R[0 * 3 + j] + Lv[1] * R[1 * 3 + j] + Lv[2] * R[2 * 3 + j]) * w;
   }
+  if (kRefine) {
+    // d(u, v)/d [fx fy cx cy k1 k2 k3] (:1198-1207).
+    const float* m = mask.m;
+    const float r4 = r2 * r2;
+    const float r6 = r4 * r2;
+    o.jgu[0] = x * dist * m[0] * w;
+    o.jgu[1] = 0.f;
+    o.jgu[2] = m[2] * w;
+    o.jgu[3] = 0.f;
+    o.jgu[4] = fx * x * r2 * m[4] * w;
+    o.jgu[5] = fx * x * r4 * m[5] * w;
+    o.jgu[6] = fx * x * r6 * m[6] * w;
+    o.jgv[0] = 0.f;
+    o.jgv[1] = y * dist * m[1] * w;
+    o.jgv[2] = 0.f;
+    o.jgv[3] = m[3] * w;
+    o.jgv[4] = fy * y * r2 * m[4] * w;
+    o.jgv[5] = fy * y * r4 * m[5] * w;
+    o.jgv[6] = fy * y * r6 * m[6] * w;
+  }
   o.ru = ru * w;
   o.rv = rv * w;
   const float hcost = nrm <= delta ? 0.5f * nrm * nrm : delta * (nrm - 0.5f * delta);
@@ -118,36 +154,59 @@ struct Tables {
   const float* obs_w;
   int C, G, P, O;
   float delta;
+  RefineMask mask;
 };
 
 // Linearizes row o with point X; false (and nothing computed) when the
 // row's camera or group id is out of range, which makes it add nothing.
+template <bool kRefine>
 __device__ __forceinline__ bool linearize_row(const Tables& t, int o, float X0, float X1,
                                               float X2, ObsLin& lin) {
   const int c = t.obs_cam[o];
   const int g = t.obs_grp[o];
   if (c < 0 || c >= t.C || g < 0 || g >= t.G) return false;
-  linearize_obs(t.camtab + (size_t)c * kCamDim, t.grptab + (size_t)g * 7, X0, X1, X2, t.uvT[o],
-                t.uvT[(size_t)t.O + o], t.obs_w[o], t.delta, lin);
+  linearize_obs<kRefine>(t.camtab + (size_t)c * kCamDim, t.grptab + (size_t)g * 7, X0, X1, X2,
+                         t.uvT[o], t.uvT[(size_t)t.O + o], t.obs_w[o], t.delta, t.mask, lin);
   return true;
 }
 
-template <typename WT>
-__device__ __forceinline__ void write_w(WT* wcT, int O, int o, const ObsLin* lin) {
+// Linearizes row o with the point of its rank (a zero point at ranks
+// outside [0, P)), as the camera and group passes meet rows.
+template <bool kRefine>
+__device__ __forceinline__ bool linearize_row_ranked(const Tables& t, int o, ObsLin& lin) {
+  const int r = t.ranks[o];
+  const bool in_table = r >= 0 && r < t.P;
+  const float X0 = in_table ? t.pts[(size_t)r * 3] : 0.f;
+  const float X1 = in_table ? t.pts[(size_t)r * 3 + 1] : 0.f;
+  const float X2 = in_table ? t.pts[(size_t)r * 3 + 2] : 0.f;
+  return linearize_row<kRefine>(t, o, X0, X1, X2, lin);
+}
+
+// W (and, in refine mode, Wg) of row o; zeros when lin is null.
+template <typename WT, bool kRefine>
+__device__ __forceinline__ void write_w(WT* wcT, WT* wgT, int O, int o, const ObsLin* lin) {
 #pragma unroll
   for (int d = 0; d < 6; ++d)
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       store_w(wcT, (size_t)(d * 3 + k) * O + o,
               lin ? lin->jcu[d] * lin->jpu[k] + lin->jcv[d] * lin->jpv[k] : 0.f);
+  if (kRefine) {
+#pragma unroll
+    for (int e = 0; e < 7; ++e)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        store_w(wgT, (size_t)(e * 3 + k) * O + o,
+                lin ? lin->jgu[e] * lin->jpu[k] + lin->jgv[e] * lin->jpv[k] : 0.f);
+  }
 }
 
-// Pass 1: blocks [0, ceil(P/256)) take one rank per thread; the last
+// Rank pass: blocks [0, ceil(P/256)) take one rank per thread; the last
 // kTailBlocks blocks write W for rows that belong to no rank.
-template <typename WT>
+template <typename WT, bool kRefine>
 __global__ void __launch_bounds__(kThreads)
 lin_point_kernel(Tables t, const int* __restrict__ rank_start, float* __restrict__ ptred,
-                 WT* __restrict__ wcT, int rank_blocks) {
+                 WT* __restrict__ wcT, WT* __restrict__ wgT, int rank_blocks) {
   ObsLin lin;
   if ((int)blockIdx.x < rank_blocks) {
     const int r = blockIdx.x * kThreads + threadIdx.x;
@@ -157,11 +216,11 @@ lin_point_kernel(Tables t, const int* __restrict__ rank_start, float* __restrict
     float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int end = rank_start[r + 1];
     for (int o = rank_start[r]; o < end; ++o) {
-      if (!linearize_row(t, o, X0, X1, X2, lin)) {
-        write_w(wcT, t.O, o, (const ObsLin*)nullptr);
+      if (!linearize_row<kRefine>(t, o, X0, X1, X2, lin)) {
+        write_w<WT, kRefine>(wcT, wgT, t.O, o, nullptr);
         continue;
       }
-      write_w(wcT, t.O, o, &lin);
+      write_w<WT, kRefine>(wcT, wgT, t.O, o, &lin);
       int k = 0;
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -181,30 +240,27 @@ lin_point_kernel(Tables t, const int* __restrict__ rank_start, float* __restrict
   for (int i = (blockIdx.x - rank_blocks) * kThreads + threadIdx.x; i < head + (t.O - tail);
        i += stride) {
     const int o = i < head ? i : tail + (i - head);
-    const bool ok = linearize_row(t, o, 0.f, 0.f, 0.f, lin);
-    write_w(wcT, t.O, o, ok ? &lin : (const ObsLin*)nullptr);
+    const bool ok = linearize_row<kRefine>(t, o, 0.f, 0.f, 0.f, lin);
+    write_w<WT, kRefine>(wcT, wgT, t.O, o, ok ? &lin : nullptr);
   }
 }
 
-// Pass 2: one block per camera sums its rows' 28 camera values.
+// Camera pass: one block per camera sums its rows' 28 (refine: 70) camera
+// values [Hcc upper 21 | gc 6 | (Hcg row-major 42) | cost].
+template <bool kRefine>
 __global__ void __launch_bounds__(kThreads)
 lin_camera_kernel(Tables t, const int* __restrict__ seg_perm, const int* __restrict__ seg_start,
                   float* __restrict__ camred) {
-  __shared__ float sums[28];
+  constexpr int K = kRefine ? 70 : 28;
+  __shared__ float sums[K];
   const int c = blockIdx.x;
-  float acc[28];
+  float acc[K];
 #pragma unroll
-  for (int k = 0; k < 28; ++k) acc[k] = 0.f;
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
   ObsLin lin;
   const int end = seg_start[c + 1];
   for (int i = seg_start[c] + threadIdx.x; i < end; i += kThreads) {
-    const int o = seg_perm[i];
-    const int r = t.ranks[o];
-    const bool in_table = r >= 0 && r < t.P;
-    const float X0 = in_table ? t.pts[(size_t)r * 3] : 0.f;
-    const float X1 = in_table ? t.pts[(size_t)r * 3 + 1] : 0.f;
-    const float X2 = in_table ? t.pts[(size_t)r * 3 + 2] : 0.f;
-    if (!linearize_row(t, o, X0, X1, X2, lin)) continue;
+    if (!linearize_row_ranked<kRefine>(t, seg_perm[i], lin)) continue;
     int k = 0;
 #pragma unroll
     for (int a = 0; a < 6; ++a)
@@ -212,22 +268,72 @@ lin_camera_kernel(Tables t, const int* __restrict__ seg_perm, const int* __restr
       for (int b = a; b < 6; ++b) acc[k++] += lin.jcu[a] * lin.jcu[b] + lin.jcv[a] * lin.jcv[b];
 #pragma unroll
     for (int a = 0; a < 6; ++a) acc[21 + a] += lin.jcu[a] * lin.ru + lin.jcv[a] * lin.rv;
-    acc[27] += lin.cost;
+    if (kRefine) {
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int e = 0; e < 7; ++e)
+          acc[27 + a * 7 + e] += lin.jcu[a] * lin.jgu[e] + lin.jcv[a] * lin.jgv[e];
+    }
+    acc[K - 1] += lin.cost;
   }
-  block_sum<28>(acc, sums);
-  if (threadIdx.x < 28) camred[(size_t)c * 28 + threadIdx.x] = sums[threadIdx.x];
+  block_sum<K>(acc, sums);
+  if (threadIdx.x < K) camred[(size_t)c * K + threadIdx.x] = sums[threadIdx.x];
 }
 
-template <typename WT>
+// Group pass (refine mode), pass 1 of a two-level sum: one block per chunk
+// of a group's rows writes the chunk's [Hgg upper 28 | gg 7].
+__global__ void __launch_bounds__(kThreads)
+lin_group_kernel(Tables t, const int* __restrict__ grp_perm, const int* __restrict__ grp_start,
+                 const int* __restrict__ grp_chunk_start, int chunk_rows,
+                 float* __restrict__ part) {
+  __shared__ float sums[kGrpVals];
+  ChunkRows ch;
+  if (!chunk_rows_of(grp_start, grp_chunk_start, t.G, chunk_rows, blockIdx.x, ch)) return;
+  float acc[kGrpVals];
+#pragma unroll
+  for (int k = 0; k < kGrpVals; ++k) acc[k] = 0.f;
+  ObsLin lin;
+  for (int i = ch.begin + threadIdx.x; i < ch.end; i += kThreads) {
+    if (!linearize_row_ranked<true>(t, grp_perm[i], lin)) continue;
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < 7; ++a)
+#pragma unroll
+      for (int b = a; b < 7; ++b) acc[k++] += lin.jgu[a] * lin.jgu[b] + lin.jgv[a] * lin.jgv[b];
+#pragma unroll
+    for (int a = 0; a < 7; ++a) acc[28 + a] += lin.jgu[a] * lin.ru + lin.jgv[a] * lin.rv;
+  }
+  block_sum<kGrpVals>(acc, sums);
+  if (threadIdx.x < kGrpVals) part[(size_t)blockIdx.x * kGrpVals + threadIdx.x] = sums[threadIdx.x];
+}
+
+struct GroupArgs {
+  const int* grp_perm;
+  const int* grp_start;
+  const int* grp_chunk_start;
+  int n_chunks, chunk_rows;
+  float* grpred;
+  void* wgT;
+  float* part;
+};
+
+template <typename WT, bool kRefine>
 int launch(const Tables& t, const int* rank_start, const int* seg_perm, const int* seg_start,
-           float* camred, float* ptred, void* wcT, cudaStream_t stream) {
+           const GroupArgs& g, float* camred, float* ptred, void* wcT, cudaStream_t stream) {
   const int rank_blocks = (t.P + kThreads - 1) / kThreads;
-  lin_point_kernel<WT><<<rank_blocks + kTailBlocks, kThreads, 0, stream>>>(
-      t, rank_start, ptred, static_cast<WT*>(wcT), rank_blocks);
+  lin_point_kernel<WT, kRefine><<<rank_blocks + kTailBlocks, kThreads, 0, stream>>>(
+      t, rank_start, ptred, static_cast<WT*>(wcT), static_cast<WT*>(g.wgT), rank_blocks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lin_camera_kernel<<<t.C, kThreads, 0, stream>>>(t, seg_perm, seg_start, camred);
-  return (int)cudaGetLastError();
+  lin_camera_kernel<kRefine><<<t.C, kThreads, 0, stream>>>(t, seg_perm, seg_start, camred);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kRefine) return (int)err;
+  lin_group_kernel<<<g.n_chunks, kThreads, 0, stream>>>(t, g.grp_perm, g.grp_start,
+                                                        g.grp_chunk_start, g.chunk_rows, g.part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_chunk_finish(g.part, g.grp_chunk_start, t.G, kGrpVals, g.grpred, stream);
 }
 
 }  // namespace
@@ -235,18 +341,36 @@ int launch(const Tables& t, const int* rank_start, const int* seg_perm, const in
 // Inputs as in the wrapper (ops/obs_table.py linearize_reduce_radial3_t):
 // float32 tables, int32 id columns, all contiguous on one device;
 // rank_start (P + 1), seg_perm (O) and seg_start (C + 1) from ObsLayout.
-// w_bf16 selects W's storage type.  Launches both passes on `stream` and
+// refine_mask (host, 7 floats) selects refine mode; it then also takes the
+// group layout (grp_perm (O), grp_start and grp_chunk_start (G + 1), at
+// most n_chunks chunks of chunk_rows rows), grpred (G, 35), wgT (21, O) of
+// W's type and the scratch part (n_chunks, 35); all null otherwise.
+// w_bf16 selects W's storage type.  Launches every pass on `stream` and
 // returns the CUDA error code of the launches (0 = success).
 extern "C" int tpusfm_ba_linearize(const float* camtab, const float* grptab, const float* pts,
                                    const int* obs_cam, const int* obs_grp, const int* ranks,
                                    const float* uvT, const float* obs_w, const int* rank_start,
-                                   const int* seg_perm, const int* seg_start, int C, int G, int P,
-                                   int O, float huber_delta, int w_bf16, float* camred,
-                                   float* ptred, void* wcT, cudaStream_t stream) {
+                                   const int* seg_perm, const int* seg_start, const int* grp_perm,
+                                   const int* grp_start, const int* grp_chunk_start,
+                                   const float* refine_mask, int C, int G, int P, int O,
+                                   int n_chunks, int chunk_rows, float huber_delta, int w_bf16,
+                                   float* camred, float* ptred, void* wcT, float* grpred,
+                                   void* wgT, float* part, cudaStream_t stream) {
   if (C <= 0 || G <= 0 || P <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
-  const Tables t{camtab, grptab, pts, obs_cam, obs_grp, ranks, uvT, obs_w, C, G, P, O,
-                 huber_delta};
-  return w_bf16 ? launch<__nv_bfloat16>(t, rank_start, seg_perm, seg_start, camred, ptred, wcT,
-                                        stream)
-                : launch<float>(t, rank_start, seg_perm, seg_start, camred, ptred, wcT, stream);
+  const bool refine = refine_mask != nullptr;
+  if (refine && (!grp_perm || !grp_start || !grp_chunk_start || !grpred || !wgT || !part ||
+                 n_chunks <= 0 || chunk_rows <= 0))
+    return (int)cudaErrorInvalidValue;
+  Tables t{camtab, grptab, pts, obs_cam, obs_grp, ranks, uvT, obs_w, C, G, P, O, huber_delta, {}};
+  for (int e = 0; e < 7; ++e) t.mask.m[e] = refine ? refine_mask[e] : 0.f;
+  const GroupArgs g{grp_perm, grp_start, grp_chunk_start, n_chunks, chunk_rows, grpred, wgT, part};
+  if (refine)
+    return w_bf16 ? launch<__nv_bfloat16, true>(t, rank_start, seg_perm, seg_start, g, camred,
+                                                ptred, wcT, stream)
+                  : launch<float, true>(t, rank_start, seg_perm, seg_start, g, camred, ptred, wcT,
+                                        stream);
+  return w_bf16 ? launch<__nv_bfloat16, false>(t, rank_start, seg_perm, seg_start, g, camred,
+                                               ptred, wcT, stream)
+                : launch<float, false>(t, rank_start, seg_perm, seg_start, g, camred, ptred, wcT,
+                                       stream);
 }

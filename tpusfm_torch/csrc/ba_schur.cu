@@ -1,5 +1,5 @@
-// Schur-complement matvec and back-reduction over the BA coupling table
-// (kernels K3 and K4 of the port).
+// Schur-complement matvec pieces over the BA coupling tables (kernels K3,
+// K4 and K5 of the port).
 //
 // K3 replaces the TPU kernel `_schur_mv_t_kernel` of tpusfm/ops/obs_table.py
 // (wrapper `schur_mv_t`, obs_table.py:2133): one CG matvec of the reduced
@@ -8,31 +8,69 @@
 //     z_r = Hpp_r^-1 y_r,
 //     bc_c = sum_{o in c} W_o z[rank_o],  out_c = Hcc_d,c v_c - bc_c
 // (or bc itself without Hcc_d), W_o the (6, 3) block stored as column o of
-// the (18, O) table in bf16 or f32.  K4 replaces `_schur_bwd_t_kernel`
-// (wrapper `schur_bwd_t`, :1948): out_n = sum_{o: id_o = n} W_o z[rank_o]
-// for blocks of any height D (6 for poses, 7 for intrinsic groups).
+// the (18, O) table in bf16 or f32.  K5 replaces `_schur_fwd_t_kernel`
+// (wrapper `schur_fwd_t`, :1834): the first line alone, for blocks of any
+// height D <= 9 (6 for poses, 7 for RADIAL3 and 9 for Brown-T2 intrinsic
+// groups); the self-calibrating matvec runs it on Wc and on Wg.  K4 replaces
+// `_schur_bwd_t_kernel` (wrapper `schur_bwd_t`, :1948): out_n = sum over the
+// rows of id n of W_o z[rank_o], for the same heights.
 //
-// What bounds them: 36 FLOPs per observation and direction against 36 bytes
-// of bf16 W plus ids and a 12-byte point row per observation: well under
-// one FLOP per byte, so memory-bound; the camera pass reads W through a
-// permutation, so each row costs 18 separate 32-byte sectors and not
-// 36 bytes.  One CG iteration is two launches (K3's rank pass and camera
-// pass) and no host synchronisation.  The TPU kernel's one-hot
-// contractions, 128-lane rank windows and bf16 three-way splits do not
-// carry over: the point table is indexed directly, so ranks need not be
-// dense, and rows with rank >= P contribute nothing and are never read.
+// What bounds them: 6D FLOPs per observation and direction against 6D bytes
+// of bf16 W plus ids and a 12-byte point row per observation: well under one
+// FLOP per byte, so memory-bound; the segment passes read W through a
+// permutation, so each row costs up to 3D separate 32-byte sectors and not
+// 6D bytes.  The TPU kernels' one-hot contractions, 128-lane rank windows
+// and bf16 three-way splits do not carry over: tables are indexed directly,
+// so ranks need not be dense, and rows with rank >= P contribute nothing
+// and are never read.
 //
-// Determinism: no atomics.  The rank pass gives each rank one thread that
-// walks its rows [rank_start[r], rank_start[r+1]) in order; the camera pass
-// gives each camera (segment) one block whose thread t takes the segment's
-// rows t, t + 256, ... of a stable permutation, then sums the threads with
-// a fixed shuffle tree.  Two calls on the same inputs give the same bits.
+// Determinism: no atomics.  The rank passes (K3's first half, K5) give each
+// rank one thread that walks its rows [rank_start[r], rank_start[r+1]) in
+// order.  K3's camera pass gives each camera one block whose thread t takes
+// the camera's rows t, t + 256, ... of a stable permutation, then sums the
+// threads with a fixed shuffle tree.  K4 sums a segment the same way per
+// fixed chunk of its rows and adds the chunks in order (ba_common.cuh): an
+// intrinsic group may hold every row of the table.  Two calls on the same
+// inputs give the same bits.
 
 #include "ba_common.cuh"
 
 namespace {
 
 using namespace tpusfm_ba;
+
+constexpr int kMaxD = 9;
+
+// sum over the rows of rank r of W_o^T v[id_o], all D rows of W_o; rows
+// whose id is outside [0, n) add nothing.
+//
+// The reference's `_schur_fwd_t_kernel` (tpusfm/ops/obs_table.py:1811-1815)
+// sums only d < 6 whatever D is, so on the TPU the intrinsic-group half of
+// the self-calibrating matvec (D = 7 or 9) drops the lanes past the sixth
+// and is not the transpose of its K4 half.  This port departs from it on
+// purpose: every lane counts, as the wrapper's contract states.
+template <typename WT, int D>
+__device__ __forceinline__ void rank_wtv(const WT* __restrict__ wT, const int* __restrict__ ids,
+                                         const float* __restrict__ vtab, int n, int O, int begin,
+                                         int end, float (&a)[3]) {
+  a[0] = a[1] = a[2] = 0.f;
+  for (int o = begin; o < end; ++o) {
+    const int c = ids[o];
+    if (c < 0 || c >= n) continue;
+    const float* v = vtab + (size_t)c * D;
+    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float vd = v[d];
+      t0 += load_w(wT, (size_t)(d * 3 + 0) * O + o) * vd;
+      t1 += load_w(wT, (size_t)(d * 3 + 1) * O + o) * vd;
+      t2 += load_w(wT, (size_t)(d * 3 + 2) * O + o) * vd;
+    }
+    a[0] += t0;
+    a[1] += t1;
+    a[2] += t2;
+  }
+}
 
 // K3 pass 1: y = W^T v per rank and z = Hpp^-1 y.
 template <typename WT>
@@ -43,47 +81,42 @@ schur_rank_kernel(const WT* __restrict__ wT, const int* __restrict__ obs_cam,
                   float* __restrict__ z) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= P) return;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  const int end = rank_start[r + 1];
-  for (int o = rank_start[r]; o < end; ++o) {
-    const int c = obs_cam[o];
-    if (c < 0 || c >= C) continue;
-    const float* v = vtab + (size_t)c * 6;
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int d = 0; d < 6; ++d) {
-      const float vd = v[d];
-      t0 += load_w(wT, (size_t)(d * 3 + 0) * O + o) * vd;
-      t1 += load_w(wT, (size_t)(d * 3 + 1) * O + o) * vd;
-      t2 += load_w(wT, (size_t)(d * 3 + 2) * O + o) * vd;
-    }
-    a0 += t0;
-    a1 += t1;
-    a2 += t2;
-  }
-  y[(size_t)r * 3] = a0;
-  y[(size_t)r * 3 + 1] = a1;
-  y[(size_t)r * 3 + 2] = a2;
+  float a[3];
+  rank_wtv<WT, 6>(wT, obs_cam, vtab, C, O, rank_start[r], rank_start[r + 1], a);
+  y[(size_t)r * 3] = a[0];
+  y[(size_t)r * 3 + 1] = a[1];
+  y[(size_t)r * 3 + 2] = a[2];
   const float* h = hinv + (size_t)r * 9;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) z[(size_t)r * 3 + i] = h[i * 3] * a0 + h[i * 3 + 1] * a1 + h[i * 3 + 2] * a2;
+  for (int i = 0; i < 3; ++i)
+    z[(size_t)r * 3 + i] = h[i * 3] * a[0] + h[i * 3 + 1] * a[1] + h[i * 3 + 2] * a[2];
 }
 
-// K4, and K3 pass 2: out_n = sum over segment n of W_o z[rank_o]; with
-// kCombine, out_n = Hcc_d,n v_n - that sum (D = 6).
-template <typename WT, int D, bool kCombine>
+// K5: y = W^T v per rank, D rows per block.
+template <typename WT, int D>
 __global__ void __launch_bounds__(kThreads)
-schur_segment_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
-                     const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
-                     const int* __restrict__ seg_start, int O, const float* __restrict__ hcc,
-                     const float* __restrict__ vtab, float* __restrict__ out) {
-  __shared__ float sums[D];
-  const int n = blockIdx.x;
-  float acc[D];
+schur_fwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ids,
+                 const float* __restrict__ vtab, int n, const int* __restrict__ rank_start, int P,
+                 int O, float* __restrict__ y) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= P) return;
+  float a[3];
+  rank_wtv<WT, D>(wT, ids, vtab, n, O, rank_start[r], rank_start[r + 1], a);
+  y[(size_t)r * 3] = a[0];
+  y[(size_t)r * 3 + 1] = a[1];
+  y[(size_t)r * 3 + 2] = a[2];
+}
+
+// Thread-local sum of W_o z[rank_o] over the permuted rows [begin, end)
+// this thread takes (begin + threadIdx.x, then every kThreads).
+template <typename WT, int D>
+__device__ __forceinline__ void segment_wz(const WT* __restrict__ wT, const int* __restrict__ ranks,
+                                           const float* __restrict__ ztab, int Pz,
+                                           const int* __restrict__ seg_perm, int O, int begin,
+                                           int end, float (&acc)[D]) {
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const int end = seg_start[n + 1];
-  for (int i = seg_start[n] + threadIdx.x; i < end; i += kThreads) {
+  for (int i = begin + threadIdx.x; i < end; i += kThreads) {
     const int o = seg_perm[i];
     const int r = ranks[o];
     if (r < 0 || r >= Pz) continue;
@@ -95,6 +128,20 @@ schur_segment_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
                 load_w(wT, (size_t)(d * 3 + 1) * O + o) * z1 +
                 load_w(wT, (size_t)(d * 3 + 2) * O + o) * z2;
   }
+}
+
+// K3 pass 2: one block per camera, out_c = [Hcc_d,c v_c -] sum W_o z[rank_o].
+template <typename WT, bool kCombine>
+__global__ void __launch_bounds__(kThreads)
+schur_camera_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
+                    const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
+                    const int* __restrict__ seg_start, int O, const float* __restrict__ hcc,
+                    const float* __restrict__ vtab, float* __restrict__ out) {
+  constexpr int D = 6;
+  __shared__ float sums[D];
+  const int n = blockIdx.x;
+  float acc[D];
+  segment_wz<WT, D>(wT, ranks, ztab, Pz, seg_perm, O, seg_start[n], seg_start[n + 1], acc);
   block_sum<D>(acc, sums);
   if (threadIdx.x < D) {
     float s = sums[threadIdx.x];
@@ -110,36 +157,77 @@ schur_segment_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
   }
 }
 
+// K4 pass 1: one block per chunk of a segment's rows writes the chunk's
+// sum of W_o z[rank_o] (D values).
 template <typename WT, int D>
-int launch_segment(const void* wT, const int* ranks, const float* ztab, int Pz,
-                   const int* seg_perm, const int* seg_start, int n, int O, float* out,
-                   cudaStream_t stream) {
-  schur_segment_kernel<WT, D, false><<<n, kThreads, 0, stream>>>(
-      static_cast<const WT*>(wT), ranks, ztab, Pz, seg_perm, seg_start, O, nullptr, nullptr, out);
+__global__ void __launch_bounds__(kThreads)
+schur_bwd_chunk_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
+                       const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
+                       const int* __restrict__ seg_start, const int* __restrict__ chunk_start,
+                       int n, int O, int chunk_rows, float* __restrict__ part) {
+  __shared__ float sums[D];
+  ChunkRows ch;
+  if (!chunk_rows_of(seg_start, chunk_start, n, chunk_rows, blockIdx.x, ch)) return;
+  float acc[D];
+  segment_wz<WT, D>(wT, ranks, ztab, Pz, seg_perm, O, ch.begin, ch.end, acc);
+  block_sum<D>(acc, sums);
+  if (threadIdx.x < D) part[(size_t)blockIdx.x * D + threadIdx.x] = sums[threadIdx.x];
+}
+
+template <typename WT, int D>
+int launch_bwd_d(const void* wT, const int* ranks, const float* ztab, int Pz,
+                 const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
+                 int n_chunks, int chunk_rows, float* part, float* out, cudaStream_t stream) {
+  schur_bwd_chunk_kernel<WT, D><<<n_chunks, kThreads, 0, stream>>>(
+      static_cast<const WT*>(wT), ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O,
+      chunk_rows, part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_chunk_finish(part, chunk_start, n, D, out, stream);
+}
+
+template <typename WT, int D>
+int launch_fwd_d(const void* wT, const int* ids, const float* vtab, int n, const int* rank_start,
+                 int P, int O, float* y, cudaStream_t stream) {
+  schur_fwd_kernel<WT, D><<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      static_cast<const WT*>(wT), ids, vtab, n, rank_start, P, O, y);
   return (int)cudaGetLastError();
 }
 
+#define TPUSFM_D_CASES(CALL) \
+  CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8) CALL(9)
+
 template <typename WT>
 int launch_bwd(int D, const void* wT, const int* ranks, const float* ztab, int Pz,
-               const int* seg_perm, const int* seg_start, int n, int O, float* out,
-               cudaStream_t stream) {
+               const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
+               int n_chunks, int chunk_rows, float* part, float* out, cudaStream_t stream) {
   switch (D) {
-#define TPUSFM_BWD_CASE(DD) \
-  case DD:                  \
-    return launch_segment<WT, DD>(wT, ranks, ztab, Pz, seg_perm, seg_start, n, O, out, stream);
-    TPUSFM_BWD_CASE(1)
-    TPUSFM_BWD_CASE(2)
-    TPUSFM_BWD_CASE(3)
-    TPUSFM_BWD_CASE(4)
-    TPUSFM_BWD_CASE(5)
-    TPUSFM_BWD_CASE(6)
-    TPUSFM_BWD_CASE(7)
-    TPUSFM_BWD_CASE(8)
+#define TPUSFM_BWD_CASE(DD)                                                                    \
+  case DD:                                                                                    \
+    return launch_bwd_d<WT, DD>(wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, \
+                                n_chunks, chunk_rows, part, out, stream);
+    TPUSFM_D_CASES(TPUSFM_BWD_CASE)
 #undef TPUSFM_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+template <typename WT>
+int launch_fwd(int D, const void* wT, const int* ids, const float* vtab, int n,
+               const int* rank_start, int P, int O, float* y, cudaStream_t stream) {
+  switch (D) {
+#define TPUSFM_FWD_CASE(DD) \
+  case DD:                  \
+    return launch_fwd_d<WT, DD>(wT, ids, vtab, n, rank_start, P, O, y, stream);
+    TPUSFM_D_CASES(TPUSFM_FWD_CASE)
+#undef TPUSFM_FWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+#undef TPUSFM_D_CASES
 
 template <typename WT>
 int launch_mv(const void* wT, const int* obs_cam, const int* ranks, const float* vtab,
@@ -152,11 +240,11 @@ int launch_mv(const void* wT, const int* obs_cam, const int* ranks, const float*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (hcc)
-    schur_segment_kernel<WT, 6, true><<<C, kThreads, 0, stream>>>(w, ranks, z, P, seg_perm,
-                                                                  seg_start, O, hcc, vtab, out);
+    schur_camera_kernel<WT, true><<<C, kThreads, 0, stream>>>(w, ranks, z, P, seg_perm, seg_start,
+                                                              O, hcc, vtab, out);
   else
-    schur_segment_kernel<WT, 6, false><<<C, kThreads, 0, stream>>>(
-        w, ranks, z, P, seg_perm, seg_start, O, nullptr, nullptr, out);
+    schur_camera_kernel<WT, false><<<C, kThreads, 0, stream>>>(w, ranks, z, P, seg_perm,
+                                                               seg_start, O, nullptr, nullptr, out);
   return (int)cudaGetLastError();
 }
 
@@ -179,16 +267,32 @@ extern "C" int tpusfm_ba_schur_mv(const void* wT, int w_bf16, const int* obs_cam
                                    seg_start, C, P, O, y, z, out, stream);
 }
 
-// K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 8; ranks (O) int32 into
-// ztab (Pz, 3) f32; seg_perm (O), seg_start (n + 1) from ObsLayout.
-// Writes out (n, D) and returns the CUDA error code of the launch.
+// K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ranks (O) int32 into
+// ztab (Pz, 3) f32; seg_perm (O), seg_start and chunk_start (n + 1) from
+// ObsLayout, at most n_chunks chunks of chunk_rows rows; part (n_chunks, D)
+// scratch.  Writes out (n, D) and returns the CUDA error code of the
+// launches.
 extern "C" int tpusfm_ba_schur_bwd(const void* wT, int w_bf16, int D, const int* ranks,
                                    const float* ztab, int Pz, const int* seg_perm,
-                                   const int* seg_start, int n, int O, float* out,
+                                   const int* seg_start, const int* chunk_start, int n, int O,
+                                   int n_chunks, int chunk_rows, float* part, float* out,
                                    cudaStream_t stream) {
-  if (n <= 0 || O <= 0 || Pz < 0) return (int)cudaErrorInvalidValue;
-  return w_bf16 ? launch_bwd<__nv_bfloat16>(D, wT, ranks, ztab, Pz, seg_perm, seg_start, n, O,
-                                            out, stream)
-                : launch_bwd<float>(D, wT, ranks, ztab, Pz, seg_perm, seg_start, n, O, out,
-                                    stream);
+  if (n <= 0 || O <= 0 || Pz < 0 || n_chunks <= 0 || chunk_rows <= 0 || D < 1 || D > kMaxD)
+    return (int)cudaErrorInvalidValue;
+  return w_bf16 ? launch_bwd<__nv_bfloat16>(D, wT, ranks, ztab, Pz, seg_perm, seg_start,
+                                            chunk_start, n, O, n_chunks, chunk_rows, part, out,
+                                            stream)
+                : launch_bwd<float>(D, wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n,
+                                    O, n_chunks, chunk_rows, part, out, stream);
+}
+
+// K5.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ids (O) int32 into vtab
+// (n, D) f32; rank_start (P + 1) from ObsLayout.  Writes y (P, 3) and
+// returns the CUDA error code of the launch.
+extern "C" int tpusfm_ba_schur_fwd(const void* wT, int w_bf16, int D, const int* ids,
+                                   const float* vtab, int n, const int* rank_start, int P, int O,
+                                   float* y, cudaStream_t stream) {
+  if (n <= 0 || P <= 0 || O <= 0 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  return w_bf16 ? launch_fwd<__nv_bfloat16>(D, wT, ids, vtab, n, rank_start, P, O, y, stream)
+                : launch_fwd<float>(D, wT, ids, vtab, n, rank_start, P, O, y, stream);
 }

@@ -91,12 +91,20 @@ def kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tpusfm_topk2_match.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.tpusfm_topk2_match.restype = ci
-        lib.tpusfm_ba_linearize.argtypes = [vp] * 11 + [ci] * 4 + [ctypes.c_float, ci] + [vp] * 4
+        lib.tpusfm_ba_linearize.argtypes = ([vp] * 15 + [ci] * 6 + [ctypes.c_float, ci]
+                                            + [vp] * 7)
         lib.tpusfm_ba_linearize.restype = ci
         lib.tpusfm_ba_schur_mv.argtypes = [vp, ci] + [vp] * 8 + [ci] * 3 + [vp] * 4
         lib.tpusfm_ba_schur_mv.restype = ci
-        lib.tpusfm_ba_schur_bwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp]
+        lib.tpusfm_ba_schur_bwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci,
+                                            vp, vp, vp]
         lib.tpusfm_ba_schur_bwd.restype = ci
+        lib.tpusfm_ba_schur_fwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, vp, vp]
+        lib.tpusfm_ba_schur_fwd.restype = ci
+        lib.tpusfm_ba_segsum_table.argtypes = [vp, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        lib.tpusfm_ba_segsum_table.restype = ci
+        lib.tpusfm_ba_segsum_sorted.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+        lib.tpusfm_ba_segsum_sorted.restype = ci
         lib.tpusfm_cuda_error_string.argtypes = [ci]
         lib.tpusfm_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

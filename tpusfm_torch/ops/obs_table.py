@@ -1,28 +1,33 @@
 """Observation-table primitives of the bundle-adjustment kernel path:
-wrappers of the CUDA kernels K2, K3 and K4 and their plain PyTorch twins.
+wrappers of the CUDA kernels K2-K7 and their plain PyTorch twins.
 
 Port of the part of ``tpusfm/ops/obs_table.py`` that ``_lm_pallas`` runs
-for a single-device solve with intrinsics held:
+for a single-device solve:
 
 - ``sort_and_rank_payload`` (XLA in the reference, plain torch here): the
   per-solve point sort and rank compaction of the observation table;
-- ``linearize_reduce_radial3_t`` (K2): RADIAL3 residuals, closed-form pose
-  and point Jacobians, Huber IRLS weights and cost for every observation,
-  reduced to packed per-camera and per-rank normal-equation rows, with the
-  Schur coupling blocks W written per observation;
+- ``linearize_reduce_radial3_t`` (K2): RADIAL3 residuals, closed-form pose,
+  point (and, with ``refine``, intrinsic) Jacobians, Huber IRLS weights
+  and cost for every observation, reduced to packed per-camera, per-rank
+  (and per-group) normal-equation rows, with the Schur coupling blocks W
+  written per observation;
 - ``schur_mv_t`` (K3): the Schur matvec of one CG iteration,
   S v = Hcc_d v - W Hpp^-1 W^T v, returning W^T v per rank as well;
 - ``schur_bwd_t`` (K4): out[n] = sum over the observations of id n of
-  W_o z[rank_o].
+  W_o z[rank_o];
+- ``schur_fwd_t`` (K5): y[r] = sum over the observations of rank r of
+  W_o^T v[id_o];
+- ``segsum_table_t`` (K6) and ``segsum_sorted_t`` (K7): segment sums of a
+  (k, O) value table by unsorted id and by sorted rank.
 
 Each wrapper keeps the reference's name, argument order and return
 contract.  For CPU tensors it returns its twin ``<name>_reference``; for
-CUDA tensors it launches the kernel of ``csrc/ba_linearize.cu`` or
-``csrc/ba_schur.cu`` or raises.  The kernels reach rows through two index
-layouts (``ObsLayout``): the rows of each rank (the table is rank-sorted,
-so a range) and the rows of each camera (a stable permutation).  A solve
-builds the layout once and passes it to every call; a call without one
-builds its own.
+CUDA tensors it launches the kernel of ``csrc/ba_*.cu`` or raises.  The
+kernels reach rows through index layouts (``ObsLayout``): the rows of each
+rank (the table is rank-sorted, so a range) and the rows of each segment
+(a stable permutation, cut into fixed chunks for the two-level sums).  A
+solve builds its layouts once and passes them to every call; a call
+without one builds its own.
 
 Conventions shared with the reference: the table is sorted by rank; a row
 whose rank is >= the rank-table size (invalid rows carry 2^30) reads a
@@ -33,6 +38,7 @@ need not be dense.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -42,9 +48,12 @@ from . import cuda_build
 INVALID_RANK = 2 ** 30
 LIN_CAM_DIM = 21  # per-camera row: [t (3) | R row-major (9) | Jr row-major (9)]
 Z_EPS = 1e-8      # |z| floor of the projection (obs_table.py:1377)
+CHUNK_ROWS = 2048  # rows of a segment one block sums in the two-level segment sums
+MAX_W_ROWS = 9     # K4/K5 take blocks of D <= 9 rows (Brown-T2 intrinsics)
 
 # Kernel launches (one per wrapper call) since the last reset.
-LAUNCHES = {"linearize_reduce_radial3_t": 0, "schur_mv_t": 0, "schur_bwd_t": 0}
+LAUNCHES = {"linearize_reduce_radial3_t": 0, "schur_mv_t": 0, "schur_bwd_t": 0,
+            "schur_fwd_t": 0, "segsum_table_t": 0, "segsum_sorted_t": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +123,20 @@ class ObsLayout:
     hold rank r (the table is rank-sorted).  seg_perm (O,) int32 and
     seg_start (n + 1,) int32: seg_perm[seg_start[c]:seg_start[c + 1]] are
     the rows of segment c in increasing row order; rows with an id outside
-    [0, n) sort past seg_start[n]."""
+    [0, n) sort past seg_start[n].  chunk_start (n + 1,) int32: segment c
+    is cut into chunks of CHUNK_ROWS of its rows, numbered
+    [chunk_start[c], chunk_start[c + 1]) over all segments; one block sums
+    one chunk and a second pass adds a segment's chunks in order."""
     rank_start: torch.Tensor | None
     seg_perm: torch.Tensor
     seg_start: torch.Tensor
+    chunk_start: torch.Tensor
+
+    @property
+    def chunk_bound(self) -> int:
+        """At least the number of chunks, known without reading the device:
+        sum_c ceil(rows_c / CHUNK_ROWS) <= ceil(O / CHUNK_ROWS) + n."""
+        return -(-self.seg_perm.shape[0] // CHUNK_ROWS) + self.seg_start.shape[0] - 1
 
 
 def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
@@ -134,8 +153,12 @@ def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
     if ranks is not None:
         qr = torch.arange(p + 1, dtype=torch.int32, device=i.device)
         rank_start = torch.searchsorted(ranks.to(torch.int32).contiguous(), qr).to(torch.int32)
+    seg_start = torch.searchsorted(key_s, q).to(torch.int32)
+    n_chunks = (seg_start[1:] - seg_start[:-1] + CHUNK_ROWS - 1) // CHUNK_ROWS
+    chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=i.device),
+                             torch.cumsum(n_chunks, 0, dtype=torch.int32)])
     return ObsLayout(rank_start=rank_start, seg_perm=perm.to(torch.int32),
-                     seg_start=torch.searchsorted(key_s, q).to(torch.int32))
+                     seg_start=seg_start, chunk_start=chunk_start)
 
 
 # ---------------------------------------------------------------------------
@@ -165,13 +188,20 @@ def _segsum_drop(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, torch.where(ok, ids, torch.full_like(ids, n)), vals)[:n]
 
 
-def linearize_math(camg, intg, X, uv, w_in, huber_delta: float):
-    """Per-observation RADIAL3 linearization (reference ``_linearize_math``
-    with refine=False): gathered camg (O, 21), intg (O, 7), X (O, 3),
-    uv (O, 2), w_in (O,) -> camvals (O, 28) [Hcc packed 21 | gc 6 | cost],
-    ptvals (O, 9) [Hpp packed 6 | gp 3], wc (O, 18) with wc[:, d*3+k] =
-    (Jc^T Jp)[d, k].  Jacobians and residuals carry the Huber IRLS weight
-    times w_in; rows with w_in <= 0 give exact zeros."""
+def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None):
+    """Per-observation RADIAL3 linearization (reference
+    ``_linearize_math_t``, obs_table.py:1129-1259, packed): gathered camg
+    (O, 21), intg (O, 7), X (O, 3), uv (O, 2), w_in (O,) -> camvals (O, 28)
+    [Hcc packed 21 | gc 6 | cost], ptvals (O, 9) [Hpp packed 6 | gp 3], wc
+    (O, 18) with wc[:, d*3+k] = (Jc^T Jp)[d, k].  Jacobians and residuals
+    carry the Huber IRLS weight times w_in; rows with w_in <= 0 give exact
+    zeros.
+
+    With refine_mask (7 floats) the intrinsic Jacobian Jg (each lane times
+    its mask entry, :1192-1207) joins: camvals becomes (O, 70) [Hcc 21 |
+    gc 6 | Hcg row-major 42 | cost], and grpvals (O, 35) [Hgg packed 28 |
+    gg 7] and wg (O, 21) with wg[:, e*3+k] = (Jg^T Jp)[e, k] are returned
+    as well."""
     Rm = camg[:, 3:12].reshape(-1, 3, 3)
     Jr = camg[:, 12:21].reshape(-1, 3, 3)
     Xc = torch.einsum("oij,oj->oi", Rm, X) + camg[:, 0:3]
@@ -210,7 +240,26 @@ def linearize_math(camg, intg, X, uv, w_in, huber_delta: float):
     Hpp = torch.einsum("oki,okj->oij", Jp, Jp)[:, iu3, ju3]
     gp = torch.einsum("oki,ok->oi", Jp, r)
     wc = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, 18)
-    return torch.cat([Hcc, gc, cost[:, None]], 1), torch.cat([Hpp, gp], 1), wc
+    ptvals = torch.cat([Hpp, gp], 1)
+    if refine_mask is None:
+        return torch.cat([Hcc, gc, cost[:, None]], 1), ptvals, wc
+    m = [float(v) for v in refine_mask]
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    r4 = r2 * r2
+    r6 = r4 * r2
+    Jg = torch.stack([
+        torch.stack([x * dist * m[0], zero, one * m[2], zero,
+                     fx * x * r2 * m[4], fx * x * r4 * m[5], fx * x * r6 * m[6]], -1),
+        torch.stack([zero, y * dist * m[1], zero, one * m[3],
+                     fy * y * r2 * m[4], fy * y * r4 * m[5], fy * y * r6 * m[6]], -1)],
+        1) * w[:, None, None]                                   # (O, 2, 7)
+    iu7, ju7 = torch.triu_indices(7, 7)
+    Hcg = torch.einsum("oki,oke->oie", Jc, Jg).reshape(-1, 42)
+    Hgg = torch.einsum("oki,okj->oij", Jg, Jg)[:, iu7, ju7]
+    gg = torch.einsum("oke,ok->oe", Jg, r)
+    wg = torch.einsum("oke,okj->oej", Jg, Jp).reshape(-1, 21)
+    return (torch.cat([Hcc, gc, Hcg, cost[:, None]], 1), ptvals, wc,
+            torch.cat([Hgg, gg], 1), wg)
 
 
 def _hat(v):
@@ -220,31 +269,31 @@ def _hat(v):
                         torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
 
 
-def _check_refine(refine: bool):
-    if refine:
-        raise NotImplementedError(
-            "linearize_reduce_radial3_t: the refine mode (intrinsic-group outputs) is not "
-            "ported yet; it comes with kernel K5 (schur_fwd_t)")
-
-
 def linearize_reduce_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks,
                                          obs_uvT, obs_w, refine: bool = False,
                                          refine_mask: tuple = (0.0,) * 7,
                                          huber_delta: float = 4.0, w_dtype: str = "f32"):
     """Plain twin of K2 in the dtype of `camtab` (float32, or float64 as an
     oracle).  Returns camred (C, 28) [Hcc packed 21 | gc 6 | cost],
-    ptred (P, 9) [Hpp packed 6 | gp 3] by rank, wcT (18, O) in w_dtype."""
-    _check_refine(refine)
+    ptred (P, 9) [Hpp packed 6 | gp 3] by rank, wcT (18, O) in w_dtype;
+    with `refine`, camred (C, 70) [Hcc 21 | gc 6 | Hcg row-major 42 |
+    cost], and also grpred (G, 35) [Hgg packed 28 | gg 7] and wgT (21, O)
+    in w_dtype (reference :1540-1547)."""
     dt = camtab.dtype
-    C, P = camtab.shape[0], pts_rank.shape[0]
-    cam_ok = (obs_cam >= 0) & (obs_cam < C) & (obs_grp >= 0) & (obs_grp < grptab.shape[0])
+    C, G, P = camtab.shape[0], grptab.shape[0], pts_rank.shape[0]
+    cam_ok = (obs_cam >= 0) & (obs_cam < C) & (obs_grp >= 0) & (obs_grp < G)
     w_in = torch.where(cam_ok, obs_w.to(dt), torch.zeros((), dtype=dt, device=camtab.device))
-    camvals, ptvals, wc = linearize_math(
+    outs = linearize_math(
         _gather_rows(camtab, obs_cam), _gather_rows(grptab.to(dt), obs_grp),
-        _gather_rows(pts_rank.to(dt), ranks), obs_uvT.to(dt).T, w_in, huber_delta)
-    camred = _segsum_drop(camvals, obs_cam, C)
-    ptred = _segsum_drop(ptvals, ranks, P)
-    return camred, ptred, wc.T.to(_w_torch_dtype(w_dtype))
+        _gather_rows(pts_rank.to(dt), ranks), obs_uvT.to(dt).T, w_in, huber_delta,
+        refine_mask if refine else None)
+    wdt = _w_torch_dtype(w_dtype)
+    camred = _segsum_drop(outs[0], obs_cam, C)
+    ptred = _segsum_drop(outs[1], ranks, P)
+    if not refine:
+        return camred, ptred, outs[2].T.to(wdt)
+    return (camred, ptred, outs[2].T.to(wdt), _segsum_drop(outs[3], obs_grp, G),
+            outs[4].T.to(wdt))
 
 
 def _wmat(wT: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -261,19 +310,38 @@ def schur_bwd_t_reference(wT, obs_cam, idx_sorted, ztab, n: int):
     return _segsum_drop(torch.einsum("odk,ok->od", W, zg), obs_cam, n)
 
 
+def schur_fwd_t_reference(wT, obs_cam, idx_sorted, vtab, p: int):
+    """Plain twin of K5, in the dtype of `vtab` (n, D): y (p, 3) =
+    sum_o [rank_o = r] W_o^T v[obs_cam_o] over all D rows of W_o.  Rows
+    with rank >= p or an id outside [0, n) add nothing."""
+    W = _wmat(wT, vtab.dtype)
+    vg = _gather_rows(vtab, obs_cam)
+    return _segsum_drop(torch.einsum("odk,od->ok", W, vg), idx_sorted, p)
+
+
 def schur_mv_t_reference(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None):
     """Plain twin of K3, in the dtype of `vtab`: y = W^T v per rank (p, 3),
     z = Hpp^-1 y, bc = W z per camera; returns (bc, y), or (hcc_d v - bc,
     y) when hcc_d (C, 6, 6) is given."""
     dt = vtab.dtype
-    W = _wmat(wT, dt)
-    vg = _gather_rows(vtab, obs_cam)
-    y = _segsum_drop(torch.einsum("odk,od->ok", W, vg), idx_sorted, p)
+    y = schur_fwd_t_reference(wT, obs_cam, idx_sorted, vtab, p)
     z = torch.einsum("pij,pj->pi", hinv_rank.to(dt), y)
     bc = schur_bwd_t_reference(wT, obs_cam, idx_sorted, z, vtab.shape[0])
     if hcc_d is not None:
         bc = torch.einsum("cij,cj->ci", hcc_d.to(dt), vtab) - bc
     return bc, y
+
+
+def segsum_table_t_reference(valsT, idx, n: int):
+    """Plain twin of K6: valsT (k, O), idx (O,) -> (n, k) sums by id in the
+    dtype of valsT; ids outside [0, n) are dropped."""
+    return _segsum_drop(valsT.T, idx, n)
+
+
+def segsum_sorted_t_reference(valsT, idx_sorted, p: int):
+    """Plain twin of K7: valsT (k, O), ranks (O,) -> (p, k) sums by rank;
+    rows with rank >= p are dropped."""
+    return _segsum_drop(valsT.T, idx_sorted, p)
 
 
 # ---------------------------------------------------------------------------
@@ -305,16 +373,24 @@ def _check_shape(name: str, t: torch.Tensor, shape: tuple):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def _layout_for(layout, seg_ids, n, ranks, p, need_ranks: bool) -> ObsLayout:
+def _layout_for(layout, seg_ids, n, ranks, p, need_ranks: bool,
+                need_segs: bool = True) -> ObsLayout:
+    """`layout` checked against the table (the parts the kernel reads), or
+    a new one when None."""
     if layout is None:
         return obs_layout(seg_ids, n, ranks if need_ranks else None, p)
-    _check_shape("layout.seg_perm", layout.seg_perm, (seg_ids.shape[0],))
-    _check_shape("layout.seg_start", layout.seg_start, (n + 1,))
+    parts = ()
+    if need_segs:
+        _check_shape("layout.seg_perm", layout.seg_perm, (seg_ids.shape[0],))
+        _check_shape("layout.seg_start", layout.seg_start, (n + 1,))
+        _check_shape("layout.chunk_start", layout.chunk_start, (n + 1,))
+        parts += (layout.seg_perm, layout.seg_start, layout.chunk_start)
     if need_ranks:
         if layout.rank_start is None:
             raise ValueError("layout has no rank_start; build it with ranks and p")
         _check_shape("layout.rank_start", layout.rank_start, (p + 1,))
-    for t in (layout.seg_perm, layout.seg_start) + ((layout.rank_start,) if need_ranks else ()):
+        parts += (layout.rank_start,)
+    for t in parts:
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != seg_ids.device:
             raise ValueError("layout tensors must be contiguous int32 on the table's device")
     return layout
@@ -332,15 +408,18 @@ def _check_w(name: str, wT: torch.Tensor, o: int, dd3: int | None = None):
 def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT,
                                obs_w, refine: bool = False, refine_mask: tuple = (0.0,) * 7,
                                huber_delta: float = 4.0, w_dtype: str = "f32", *,
-                               layout: ObsLayout | None = None):
+                               layout: ObsLayout | None = None,
+                               grp_layout: ObsLayout | None = None):
     """K2: fused linearize + reduce over a rank-sorted observation table.
 
     camtab (C, 21) [t | R | Jr], grptab (G, 7) RADIAL3 intrinsics,
     pts_rank (P, 3) points by rank, obs_cam / obs_grp / ranks (O,),
     obs_uvT (2, O), obs_w (O,) -> (camred (C, 28), ptred (P, 9),
-    wcT (18, O) in w_dtype); see the twin.  `layout` (camera segments of
-    obs_cam, rank ranges for P) saves rebuilding it per call."""
-    _check_refine(refine)
+    wcT (18, O) in w_dtype), or with `refine` (camred (C, 70), ptred,
+    wcT, grpred (G, 35), wgT (21, O)); see the twin.  `layout` (camera
+    segments of obs_cam, rank ranges for P) and, with `refine`,
+    `grp_layout` (group segments of obs_grp) save rebuilding them per
+    call."""
     if not _dispatch("linearize_reduce_radial3_t", camtab, grptab, pts_rank, obs_cam, obs_grp,
                      ranks, obs_uvT, obs_w):
         return linearize_reduce_radial3_t_reference(
@@ -357,25 +436,41 @@ def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks
     if min(C, G, P, O) < 1:
         raise ValueError("linearize_reduce_radial3_t needs at least one camera, group, "
                          "point and observation")
+    if refine and len(refine_mask) != 7:
+        raise ValueError(f"refine_mask must have 7 entries, got {len(refine_mask)}")
     lay = _layout_for(layout, obs_cam, C, ranks, P, need_ranks=True)
     camtab, grptab, pts = _f32(camtab), _f32(grptab), _f32(pts_rank)
     cam, grp, rk = _i32(obs_cam), _i32(obs_grp), _i32(ranks)
     uvT, w = _f32(obs_uvT), _f32(obs_w)
     dev = camtab.device
-    camred = torch.empty((C, 28), dtype=torch.float32, device=dev)
+    camred = torch.empty((C, 70 if refine else 28), dtype=torch.float32, device=dev)
     ptred = torch.empty((P, 9), dtype=torch.float32, device=dev)
     wcT = torch.empty((18, O), dtype=wdt, device=dev)
+    if refine:
+        glay = _layout_for(grp_layout, obs_grp, G, None, None, need_ranks=False)
+        grpred = torch.empty((G, 35), dtype=torch.float32, device=dev)
+        wgT = torch.empty((21, O), dtype=wdt, device=dev)
+        part = torch.empty((glay.chunk_bound, 35), dtype=torch.float32, device=dev)
+        mask = (ctypes.c_float * 7)(*(float(m) for m in refine_mask))
+        grp_ptrs = (glay.seg_perm.data_ptr(), glay.seg_start.data_ptr(),
+                    glay.chunk_start.data_ptr(), ctypes.addressof(mask))
+        grp_outs = (grpred.data_ptr(), wgT.data_ptr(), part.data_ptr())
+        n_chunks = glay.chunk_bound
+    else:
+        grp_ptrs, grp_outs, n_chunks = (None,) * 4, (None,) * 3, 0
     lib = cuda_build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpusfm_ba_linearize(
             camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(), grp.data_ptr(),
             rk.data_ptr(), uvT.data_ptr(), w.data_ptr(), lay.rank_start.data_ptr(),
-            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), C, G, P, O, float(huber_delta),
-            int(wdt == torch.bfloat16), camred.data_ptr(), ptred.data_ptr(), wcT.data_ptr(),
-            stream)
+            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), *grp_ptrs, C, G, P, O, n_chunks,
+            CHUNK_ROWS, float(huber_delta), int(wdt == torch.bfloat16), camred.data_ptr(),
+            ptred.data_ptr(), wcT.data_ptr(), *grp_outs, stream)
     cuda_build.check(lib, err, "linearize_reduce_radial3_t launch")
     LAUNCHES["linearize_reduce_radial3_t"] += 1
+    if refine:
+        return camred, ptred, wcT, grpred, wgT
     return camred, ptred, wcT
 
 
@@ -421,16 +516,17 @@ def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
 
 def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | None = None):
     """K4: out (n, D) = sum over observations o with obs_cam_o = n of
-    W_o z[rank_o]; wT (3D, O) bf16/f32 for any D, idx_sorted (O,) ranks into
-    ztab (Pz, 3).  obs_cam may be any id column (camera or group) whose
+    W_o z[rank_o]; wT (3D, O) bf16/f32 with D <= 9, idx_sorted (O,) ranks
+    into ztab (Pz, 3).  obs_cam may be any id column (camera or group) whose
     segment layout `layout` describes."""
     if not _dispatch("schur_bwd_t", wT, obs_cam, idx_sorted, ztab):
         return schur_bwd_t_reference(wT, obs_cam, idx_sorted, ztab, n)
     O = idx_sorted.shape[0]
     _check_w("schur_bwd_t", wT, O)
     D = wT.shape[0] // 3
-    if D > 8:
-        raise ValueError(f"schur_bwd_t: at most 8 rows per block (3D <= 24), got D = {D}")
+    if not 1 <= D <= MAX_W_ROWS:
+        raise ValueError(f"schur_bwd_t: 1 to {MAX_W_ROWS} rows per block (3D <= "
+                         f"{3 * MAX_W_ROWS}), got D = {D}")
     Pz = ztab.shape[0]
     _check_shape("ztab", ztab, (Pz, 3))
     _check_shape("obs_cam", obs_cam, (O,))
@@ -439,12 +535,102 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
     lay = _layout_for(layout, obs_cam, n, None, None, need_ranks=False)
     rk, z = _i32(idx_sorted), _f32(ztab)
     out = torch.empty((n, D), dtype=torch.float32, device=z.device)
+    part = torch.empty((lay.chunk_bound, D), dtype=torch.float32, device=z.device)
     lib = cuda_build.kernels()
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.tpusfm_ba_schur_bwd(
             wT.data_ptr(), int(wT.dtype == torch.bfloat16), D, rk.data_ptr(), z.data_ptr(), Pz,
-            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), n, O, out.data_ptr(), stream)
+            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), n, O,
+            lay.chunk_bound, CHUNK_ROWS, part.data_ptr(), out.data_ptr(), stream)
     cuda_build.check(lib, err, "schur_bwd_t launch")
     LAUNCHES["schur_bwd_t"] += 1
+    return out
+
+
+def schur_fwd_t(wT, obs_cam, idx_sorted, vtab, p: int, *, layout: ObsLayout | None = None):
+    """K5: y (p, 3) = sum over the observations o of rank r of
+    W_o^T v[obs_cam_o], W_o the (D, 3) block in column o of wT (3D, O)
+    bf16/f32, D <= 9, vtab (n, D) with obs_cam any id column into it
+    (camera or group).  Every one of the D rows counts (the reference's
+    kernel sums only the first six; see csrc/ba_schur.cu).  `layout`
+    needs only its rank ranges for p."""
+    if not _dispatch("schur_fwd_t", wT, obs_cam, idx_sorted, vtab):
+        return schur_fwd_t_reference(wT, obs_cam, idx_sorted, vtab, p)
+    O = idx_sorted.shape[0]
+    _check_w("schur_fwd_t", wT, O)
+    D = wT.shape[0] // 3
+    if not 1 <= D <= MAX_W_ROWS:
+        raise ValueError(f"schur_fwd_t: 1 to {MAX_W_ROWS} rows per block, got D = {D}")
+    n = vtab.shape[0]
+    _check_shape("vtab", vtab, (n, D))
+    _check_shape("obs_cam", obs_cam, (O,))
+    if min(n, O, p) < 1:
+        raise ValueError("schur_fwd_t needs at least one id, observation and rank")
+    lay = _layout_for(layout, obs_cam, n, idx_sorted, p, need_ranks=True, need_segs=False)
+    ids, v = _i32(obs_cam), _f32(vtab)
+    y = torch.empty((p, 3), dtype=torch.float32, device=v.device)
+    lib = cuda_build.kernels()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.tpusfm_ba_schur_fwd(
+            wT.data_ptr(), int(wT.dtype == torch.bfloat16), D, ids.data_ptr(), v.data_ptr(), n,
+            lay.rank_start.data_ptr(), p, O, y.data_ptr(), stream)
+    cuda_build.check(lib, err, "schur_fwd_t launch")
+    LAUNCHES["schur_fwd_t"] += 1
+    return y
+
+
+def _check_vals(name: str, valsT: torch.Tensor, o: int):
+    if valsT.dim() != 2 or valsT.shape[1] != o or valsT.shape[0] < 1:
+        raise ValueError(f"{name}: valsT must be (k, {o}) with k >= 1, got {tuple(valsT.shape)}")
+
+
+def segsum_table_t(valsT, idx, n: int, *, layout: ObsLayout | None = None):
+    """K6: valsT (k, O), idx (O,) in any order -> (n, k) float32 sums by
+    id; ids outside [0, n) are dropped.  `layout` holds idx's segments."""
+    if not _dispatch("segsum_table_t", valsT, idx):
+        return segsum_table_t_reference(valsT, idx, n)
+    O = idx.shape[0]
+    _check_vals("segsum_table_t", valsT, O)
+    if min(n, O) < 1:
+        raise ValueError("segsum_table_t needs at least one segment and one observation")
+    k = valsT.shape[0]
+    lay = _layout_for(layout, idx, n, None, None, need_ranks=False)
+    vals = _f32(valsT)
+    out = torch.empty((n, k), dtype=torch.float32, device=vals.device)
+    part = torch.empty((lay.chunk_bound, k), dtype=torch.float32, device=vals.device)
+    lib = cuda_build.kernels()
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.tpusfm_ba_segsum_table(
+            vals.data_ptr(), k, O, lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(),
+            lay.chunk_start.data_ptr(), n, lay.chunk_bound, CHUNK_ROWS, part.data_ptr(),
+            out.data_ptr(), stream)
+    cuda_build.check(lib, err, "segsum_table_t launch")
+    LAUNCHES["segsum_table_t"] += 1
+    return out
+
+
+def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = None):
+    """K7: valsT (k, O), non-decreasing ranks (O,) -> (p, k) float32 sums
+    by rank; rows with rank >= p are dropped and ranks need not be dense.
+    `layout` needs only its rank ranges for p."""
+    if not _dispatch("segsum_sorted_t", valsT, idx_sorted):
+        return segsum_sorted_t_reference(valsT, idx_sorted, p)
+    O = idx_sorted.shape[0]
+    _check_vals("segsum_sorted_t", valsT, O)
+    if min(p, O) < 1:
+        raise ValueError("segsum_sorted_t needs at least one rank and one observation")
+    k = valsT.shape[0]
+    lay = _layout_for(layout, idx_sorted, 0, idx_sorted, p, need_ranks=True, need_segs=False)
+    vals = _f32(valsT)
+    out = torch.empty((p, k), dtype=torch.float32, device=vals.device)
+    lib = cuda_build.kernels()
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.tpusfm_ba_segsum_sorted(vals.data_ptr(), k, O, lay.rank_start.data_ptr(), p,
+                                          out.data_ptr(), stream)
+    cuda_build.check(lib, err, "segsum_sorted_t launch")
+    LAUNCHES["segsum_sorted_t"] += 1
     return out

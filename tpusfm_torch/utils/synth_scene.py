@@ -5,7 +5,8 @@ arguments, same random stream, same arrays), so that programs of the port
 that must run where jax is absent, such as ``chip_smoke.py``, can build the
 reference's bundle-adjustment problems.  The axis-angle column comes from
 the port's ``so3_log`` in float32.  ``point_sorted_ba_problem`` builds the
-reference bench's BA problem from it (``bench.py:171-202``).
+reference bench's BA problem from it (``bench.py:171-202``), optionally
+seen through a Brown-T2 lens.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import lie
+from ..core import distortion, lie
 
 
 def orbit_scene(
@@ -123,16 +124,30 @@ def point_sorted(prob: dict) -> dict:
 
 def point_sorted_ba_problem(n_cams: int, n_points: int, seed: int = 3, arc_deg: float = 350.0,
                             vis_prob: float = 0.06, noise_px: float = 0.5,
-                            perturb: float = 0.01) -> dict:
+                            perturb: float = 0.01, brown: tuple | None = None) -> dict:
     """The reference bench's BA problem (``bench.py:171-202``): an orbit
     scene with poses perturbed by `perturb` and points by 2 * perturb
     (numpy seed 0), point-sorted (``point_sorted``).  Returns the numpy
-    arguments of ``bundle_adjust``."""
-    s = orbit_scene(n_cams=n_cams, n_points=n_points, noise_px=noise_px, seed=seed,
-                    arc_deg=arc_deg, vis_prob=vis_prob)
+    arguments of ``bundle_adjust``.
+
+    With `brown` = (k1, k2, k3, t1, t2) the same scene's exact projections
+    are distorted through that Brown-T2 lens and get `noise_px` of noise
+    afterwards (numpy seed `seed` + 1), and the intrinsics are 9 lanes with
+    the distortion at zero: a self-calibration start."""
+    s = orbit_scene(n_cams=n_cams, n_points=n_points, noise_px=0.0 if brown else noise_px,
+                    seed=seed, arc_deg=arc_deg, vis_prob=vis_prob)
+    intr = np.tile(s["intr"], (n_cams, 1))
+    obs_uv = s["obs_uv"]
+    if brown:
+        f, c = s["intr"][:2], s["intr"][2:4]
+        xd = distortion.distort_brown(torch.tensor(brown, dtype=torch.float64),
+                                      torch.from_numpy((obs_uv - c) / f)).numpy()
+        noise = np.random.default_rng(seed + 1).normal(scale=noise_px, size=xd.shape)
+        obs_uv = (xd * f + c + noise).astype(np.float32)
+        intr = np.concatenate([intr, np.zeros((n_cams, 2), np.float32)], 1)
     r = np.random.default_rng(0)
     return point_sorted(dict(
-        intr=np.tile(s["intr"], (n_cams, 1)),
+        intr=intr,
         cam_rot=(s["aa"] + r.normal(scale=perturb, size=(n_cams, 3))).astype(np.float32),
         cam_t=(s["t"] + r.normal(scale=perturb, size=(n_cams, 3))).astype(np.float32),
         cam_mask=np.ones(n_cams, bool),
@@ -141,6 +156,6 @@ def point_sorted_ba_problem(n_cams: int, n_points: int, seed: int = 3, arc_deg: 
         point_mask=s["point_valid"],
         obs_cam=s["obs_cam"],
         obs_pt=s["obs_pt"],
-        obs_uv=s["obs_uv"],
+        obs_uv=obs_uv,
         obs_mask=np.ones(len(s["obs_cam"]), bool),
     ))
