@@ -30,38 +30,57 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    quality bars, the refined fx within 1% of the truth, and that K2 ran in
    refine mode, K5 with D = 6 and D = 7 and K4 with D = 7 in this run;
    keeps the last call of each;
-7. path kernels: K1 bit-equal to its twin at the 200-view chunk, both
+7. the gather path: the held rung again with engine.ba fused_linearize=
+   False, pallas_gathers=True, precond="schur_diag" (the reference's
+   BAConfig fields): the same bars; K8 (poses, intrinsics, Hpp^-1 rows),
+   K9 (points by rank), K6, K7, K3 and K4 launched, K2 not; keeps the last
+   call of each;
+8. path kernels: K1 bit-equal to its twin at the 200-view chunk, both
    timed; K2, K3, K4 against their twins evaluated in float64 on the card,
    at shape (a) and at (b), the reference bench's 500-camera problem
    (bench.py:171-202, about 1.5M observations, point-sorted): each within
    4x the float32 twin's own error against float64 (bf16 W within one bf16
    ulp), bit-identical on a repeat call; median ms of kernel and float32
-   twin;
-8. BA solve at shape (b): bundle_adjust(max_iters=20, cg_iters=30,
+   twin, and device time from torch.profiler;
+9. K2's unreduced mode: launched through the ops-layer composition the
+   reference's CPU delegate runs (unreduced K2, then K6 and K7) at the two
+   200-view shapes, counts reset just before; held and refine at those
+   shapes and at (b): against its twins as in phase 8, and its K6 + K7
+   sums against K2 reduced on the same inputs (rtol 2e-5, atol 1e-4 of
+   scale, the reference's tests/test_obs_table.py:147-196);
+10. BA solve at shape (b): bundle_adjust(max_iters=20, cg_iters=30,
    assume_sorted=True) through the kernels and through the plain path
    (impl="xla"), as configured and with converge_rtol=0 (all 20
    iterations, for a steadier rate); prints LM iterations per second and
    final costs, asserts the kernel path's cost within 1e-2 relative of the
    plain path's; then the same kernel-path solve with
    precond="schur_diag" (K6), within 1e-2 of the "hcc" solve;
-9. path B, Brown-T2 self-calibration at shape (b): the bench scene seen
+11. path B, Brown-T2 self-calibration at shape (b): the bench scene seen
    through [k1 k2 k3 t1 t2] = [-0.10, 0.015, 0, 0.008, -0.006] plus 0.5 px
    noise, started from zero distortion with one group: the unfused kernel
    path (K6, K7, K5 and K4 with D = 6 and 9) and the plain path, both
    under 0.05 of the initial cost and within 1e-2 of each other, k1 within
    0.01 and t1, t2 within 0.003 of the lens; LM iterations per second;
-10. the new kernels against their twins at the shapes paths A and B gave
-   them: K2 refine, K4 (D = 7, 9), K5 (D = 6, 7, 9), K6, K7; as phase 7.
+   then the kernel path again with pallas_gathers=True (K8, K9), which
+   must give the same intrinsics, poses, points and final cost bit for bit;
+12. K2 refine, K4 (D = 7, 9), K5 (D = 6, 7, 9), K6, K7 against their
+   twins at the shapes paths A and B gave them, as phase 8;
+13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
+   to their twins with zero rows outside the table, timed beside
+   index_select.
 
 The second-to-last stdout line is a JSON object with one entry per kernel
-K1-K7: route, source, the TPU kernel it replaces, launches in its main-path
-run (the 20-view run for K1, the held 200-view run for K2-K4, path A for
-K5, path B for K6 and K7), max abs error against the (float64 for K2-K7)
-twin, kernel and twin milliseconds, the least time the card could take
-(bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is
-larger) and what bounds it, and the time of one PyTorch call computing the
-same function where there is one (index_add_ for K6, K7), all at the
-kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
+K1-K9 and K2's unreduced mode: route, source, the TPU kernel it replaces,
+launches in its main-path run (the 20-view run for K1, the held 200-view
+run for K2-K4, path A for K5, path B for K6 and K7, the gather run for K8
+and K9, the composition of phase 9 for K2 unreduced), max abs error
+against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
+device time from torch.profiler, the least time the card could take (bytes
+at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is larger) and
+what bounds it, and the time of one PyTorch call computing the same
+function where there is one (index_add_ for K6, K7, index_select for K8,
+K9), all at the kernel's main-path shape; the last line is {"ok": true,
+"device": {...}}.
 Exits non-zero, printing no result, when no CUDA device is visible or the
 port is not importable.
 """
@@ -80,6 +99,9 @@ import time
 # and those of the self-calibrating and unfused paths (K5, K6, K7).
 BA_KERNELS = ("linearize_reduce_radial3_t", "schur_mv_t", "schur_bwd_t")
 NEW_KERNELS = ("schur_fwd_t", "segsum_table_t", "segsum_sorted_t")
+# The gathers (K8, K9) and K2's unreduced mode.
+GATHERS = ("gather_table", "gather_sorted")
+UNREDUCED = "linearize_radial3_t"
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and
 # float32 outside the tensor cores, which every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -89,6 +111,9 @@ FP32_FLOP_PER_S = 67e12
 # gc, Hpp, gp, W, cost: ~160); refine mode adds Jg and its products (Hcg,
 # Hgg, gg, Wg: ~315).  Counted from csrc/ba_linearize.cu, each done once.
 K2_FLOPS_PER_OBS = {False: 450, True: 765}
+# K2's unreduced mode writes full blocks: Hcc 36 and Hpp 9 products instead
+# of 21 and 6 (+54), and in refine mode Hgg 49 instead of 28 (+63 more).
+K2U_FLOPS_PER_OBS = {False: 504, True: 882}
 
 
 def _run(cmd: list[str]) -> str:
@@ -110,6 +135,32 @@ def _median_ms(fn, warmup: int = 2, runs: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def _device_ms(fn, runs: int = 10) -> float:
+    """Device time of one call from torch.profiler's kernel records over
+    `runs` calls after two warm-ups: for each kernel the call launches
+    (each wrapper here launches each of its kernels once), its mean
+    recorded duration, summed.  A mean per kernel stays right where the
+    profiler misses records, as it does late in this script's run on the
+    card; kernels with fewer records than calls are printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusfm_torch.tools.profile_rung import _device_kernels
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof)
+    short = [(name[:60], n) for name, n, _ in rows if n != runs]
+    if short:
+        print(f"    profiler kept {short} kernel records of {runs} calls")
+    return sum(us / n for _, n, us in rows) / 1e3
 
 
 def phase_device():
@@ -206,10 +257,13 @@ def phase_kernel(card: str) -> dict:
           f"({32 * flops / ms32 / 1e9:.2f} TFLOP/s) vs twin {plain_ms32:.4f} ms")
     out = k1.match_topk2(da, db, mb)
     bound = _bound([da, db, mb], list(out), 192 * flops)
-    print(f"K1 bound at the 192-pair chunk: {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    dev_ms = _device_ms(lambda: k1.match_topk2(da, db, mb))
+    print(f"K1 bound at the 192-pair chunk: {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+          f"device time {dev_ms:.4f} ms")
     return {"name": "topk2_match", "route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
             "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
-            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "device_ms": dev_ms}
 
 
 def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
@@ -288,6 +342,10 @@ def _variant(name: str, a: tuple, k: dict) -> str:
         return f"D={a[0].shape[0] // 3}"
     if name in NEW_KERNELS:
         return f"k={a[0].shape[0]}"
+    if name in GATHERS:
+        return f"D={a[0].shape[1]}"
+    if name == UNREDUCED:
+        return "refine" if k.get("refine", len(a) > 8 and a[8]) else "held"
     return ""
 
 
@@ -296,7 +354,7 @@ def _recording(capture: dict | None):
     """Yields (solves, calls): this run's _lm_kernels solves as (C, P, O)
     and a Counter of kernel-wrapper calls by (name, variant).  When
     `capture` is given, also keeps the arguments of the last call of each
-    wrapper (K1-K7) there, under its name and under (name, variant).
+    wrapper (K1-K9) there, under its name and under (name, variant).
     Restores everything on exit."""
     from collections import Counter
 
@@ -312,7 +370,8 @@ def _recording(capture: dict | None):
         return saved[(tba, "_lm_kernels")](*a, **k)
 
     tba._lm_kernels = lm_kernels
-    for mod, name in [(k1, "match_topk2")] + [(ot, n) for n in BA_KERNELS + NEW_KERNELS]:
+    for mod, name in [(k1, "match_topk2")] + [(ot, n) for n in BA_KERNELS + NEW_KERNELS
+                                               + GATHERS + (UNREDUCED,)]:
         saved[(mod, name)] = getattr(mod, name)
 
         def rec(*a, _key=(mod, name), **k):
@@ -407,6 +466,35 @@ def phase_selfcal200(entries: dict, focal_start: float) -> dict:
     return captured
 
 
+def phase_gathers200(entries: dict) -> dict:
+    """The held medium rung through the reference's gather path: engine.ba
+    with fused_linearize=False, pallas_gathers=True, precond="schur_diag"
+    (jacfwd linearization on rows gathered by K8 and K9, reduced by K6 and
+    K7; the preconditioner's Hpp^-1 rows gathered by K8).  Returns its last
+    kernel calls."""
+    from tpusfm_torch.ba.bundle_adjust import BAConfig
+    from tpusfm_torch.tools.front_end_counts import rung_inputs
+
+    images, gt, cfg = rung_inputs(200)
+    ba = BAConfig(max_iters=8, fix_first_cam=False, fused_linearize=False, pallas_gathers=True,
+                  precond="schur_diag")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, ba=ba))
+    captured = {}
+    _, counts, calls = _run_rung(images, gt, cfg, "200-view run, gather path (unfused, "
+                                 "pallas_gathers, schur_diag)", captured)
+    path = GATHERS + ("segsum_table_t", "segsum_sorted_t", "schur_mv_t", "schur_bwd_t")
+    print(f"  K8, K9, K6, K7, K3, K4 launches: {json.dumps({n: counts[n] for n in path})}")
+    need = [("gather_table", "D=6"), ("gather_table", "D=7"), ("gather_table", "D=9"),
+            ("gather_sorted", "D=3")]
+    if (any(counts[n] == 0 for n in path) or any(calls[k] == 0 for k in need)
+            or counts["linearize_reduce_radial3_t"]):
+        raise AssertionError(f"gather-path run: not the unfused path through K8 and K9: {counts}, "
+                             f"{dict(calls)}")
+    for name in GATHERS:
+        entries[name]["launches"] = counts[name]
+    return captured
+
+
 def _oracle(got, f32, f64, what):
     """Kernel output against the float64 twin: within 4x the float32 twin's
     own error against float64 (both sum float32 values, in other orders),
@@ -458,6 +546,10 @@ def _flops(name: str, a: tuple, k: dict) -> float:
     """Float operations of one call of a BA kernel on these inputs."""
     if name == "linearize_reduce_radial3_t":
         return K2_FLOPS_PER_OBS[bool(k.get("refine", False))] * a[5].shape[0]
+    if name == UNREDUCED:
+        return K2U_FLOPS_PER_OBS[bool(k.get("refine", False))] * a[5].shape[0]
+    if name in GATHERS:  # copies
+        return 0.0
     if name == "schur_mv_t":  # W^T v and W z (36 each), Hpp^-1 y per rank, Hcc v per camera
         return 72 * a[0].shape[1] + 15 * a[5] + 78 * a[3].shape[0]
     if name in ("schur_bwd_t", "schur_fwd_t"):  # one multiply-add per W entry
@@ -478,11 +570,29 @@ def _index_add(a: tuple):
     return lambda: out.index_add_(0, ids, src)
 
 
+def _index_select(a: tuple):
+    """The one PyTorch call that computes K8's or K9's function on the
+    in-range ids (index_select of the table's rows), those ids picked
+    beforehand."""
+    table, idx = a
+    ids = idx[(idx >= 0) & (idx < table.shape[0])].long()
+    return lambda: table.index_select(0, ids)
+
+
+# The PyTorch call that computes a kernel's function, where there is one.
+LIBRARY = {"segsum_table_t": (_index_add, "index_add_"),
+           "segsum_sorted_t": (_index_add, "index_add_"),
+           "gather_table": (_index_select, "index_select"),
+           "gather_sorted": (_index_select, "index_select")}
+
+
 def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
     """One kernel at one captured call (args, kwargs): bit-identical on a
     repeat, each output within 4x the float32 twin's error against the
-    float64 twin (the W tables of `w_outputs` within one bf16 ulp), median
-    ms of kernel, float32 twin and, for K6/K7, index_add_; its bound."""
+    float64 twin (the W tables of `w_outputs` within one bf16 ulp; K8 and
+    K9 bit-equal to the float32 twin), median ms of kernel, float32 twin
+    and, where one PyTorch call computes the same function, that call; the
+    device time from torch.profiler; its bound."""
     import torch
 
     from tpusfm_torch.ops import obs_table as ot
@@ -497,6 +607,11 @@ def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
     f32, f64 = twin(*a, **tw), twin(*_f64(a), **tw64)
     f32 = f32 if isinstance(f32, tuple) else (f32,)
     f64 = f64 if isinstance(f64, tuple) else (f64,)
+    if name in GATHERS:
+        if not torch.equal(got[0], f32[0]):
+            raise AssertionError(f"{name} at {label}: differs from its twin")
+        out = (a[1] < 0) | (a[1] >= a[0].shape[0])
+        print(f"    {name}: bit-equal to its twin, {int(out.sum())} rows outside the table zero")
     errs = []
     for i, (g, lo, hi) in enumerate(zip(got, f32, f64)):
         if i not in w_outputs:
@@ -512,13 +627,14 @@ def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
               f"(max abs diff {float(diff.max()):.3e})")
     res = {"max_abs_err": max(errs), "ms": _median_ms(lambda: fn(*a, **kw)),
            "plain_ms": _median_ms(lambda: twin(*a, **tw)),
-           "library_ms": _median_ms(_index_add(a)) if name in NEW_KERNELS[1:] else None}
+           "library_ms": _median_ms(LIBRARY[name][0](a)) if name in LIBRARY else None,
+           "device_ms": _device_ms(lambda: fn(*a, **kw))}
     ins = [t for t in list(a) + list(tw.values()) if isinstance(t, torch.Tensor)]
     res.update(_bound(ins, got, _flops(name, a, kw)))
-    lib = "" if res["library_ms"] is None else f", index_add_ {res['library_ms']:.4f} ms"
-    print(f"  {name} at {label}: kernel {res['ms']:.4f} ms, float32 twin {res['plain_ms']:.4f} ms"
-          f"{lib}, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), max abs err vs float64 "
-          f"twin {res['max_abs_err']:.3e}")
+    lib = "" if res["library_ms"] is None else f", {LIBRARY[name][1]} {res['library_ms']:.4f} ms"
+    print(f"  {name} at {label}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms), "
+          f"float32 twin {res['plain_ms']:.4f} ms{lib}, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), max abs err vs float64 twin {res['max_abs_err']:.3e}")
     return res
 
 
@@ -655,13 +771,123 @@ def phase_ba_solve(bench: dict, card: str) -> None:
         raise AssertionError(f"schur_diag solve's cost {sd} vs hcc {hcc}: more than 1e-2 apart")
 
 
+def _packed_close(got, want, what):
+    """The reference's oracle tolerance for sums taken in other orders
+    (tests/test_obs_table.py:147-196): rtol 2e-5, atol 1e-4 of the
+    output's largest entry."""
+    tol = 2e-5 * want.abs() + 1e-4 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"{what}: K6/K7 over the unreduced tables differ from K2 reduced "
+                             f"by {err}")
+    return err
+
+
+def _unreduced_then_reduce(a, kw):
+    """The reference's CPU delegate of K2 (obs_table.py:1556-1580) through
+    the port's ops entry points: K2's unreduced mode, then K6 per camera
+    (and group) and K7 per rank.  Returns the reduced mode's outputs
+    rebuilt from those sums: (camred, ptred[, grpred]) packed."""
+    from tpusfm_torch.ops import obs_table as ot
+
+    refine = kw.get("refine", False)
+    lay, glay = kw.get("layout"), kw.get("grp_layout")
+    outs = ot.linearize_radial3_t(*a, **{k: v for k, v in kw.items()
+                                         if k not in ("layout", "grp_layout")})
+    C, G, P = a[0].shape[0], a[1].shape[0], a[2].shape[0]
+    cam = ot.segsum_table_t(outs[0], a[3], C, layout=lay)
+    pt = ot.segsum_sorted_t(outs[1], a[5], P, layout=lay)
+    pck6 = [i * 6 + j for i in range(6) for j in range(i, 6)]
+    pck3 = [i * 3 + j for i in range(3) for j in range(i, 3)]
+    camred = cam[:, pck6 + list(range(36, cam.shape[1]))]
+    ptred = pt[:, pck3 + [9, 10, 11]]
+    if not refine:
+        return camred, ptred
+    grp = ot.segsum_table_t(outs[3], a[4], G, layout=glay)
+    pck7 = [i * 7 + j for i in range(7) for j in range(i, 7)]
+    return camred, ptred, grp[:, pck7 + list(range(49, 56))]
+
+
+def _check_unreduced(call, label, card) -> dict:
+    """K2's unreduced mode at one shape: against its twins (as
+    _check_kernel), and its K6 + K7 reduction against K2 reduced on the
+    same inputs.  Frees its tables before returning."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
+    a, kw = call
+    ukw = {k: v for k, v in kw.items() if k not in ("layout", "grp_layout")}
+    print(f"K2 unreduced at {label}: C={a[0].shape[0]} G={a[1].shape[0]} P={a[2].shape[0]} "
+          f"O={a[5].shape[0]} on {card}")
+    res = _check_kernel(UNREDUCED, (a, ukw), label, w_outputs=(2, 4))
+    red = ot.linearize_reduce_radial3_t(*a, **kw)
+    sums = _unreduced_then_reduce(a, kw)
+    errs = [_packed_close(got, want, f"{label}, {what}")
+            for got, want, what in zip(sums, red[:2] + red[3:4], ("camred", "ptred", "grpred"))]
+    print(f"    K6 + K7 over the unreduced tables = K2 reduced (rtol 2e-5, atol 1e-4 of scale): "
+          f"max abs diff {max(errs):.3e}")
+    del red, sums
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_unreduced(card: str, captured: dict, cap_a: dict, bench: dict, entries: dict) -> None:
+    """K2's unreduced mode, held and refine, at the 200-view shapes (the
+    held run's and path A's last K2 calls) and at the 500-camera shape;
+    its launches counted over the ops-layer composition (unreduced K2, then
+    K6 and K7) at the two 200-view shapes."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
+    held_a, refine_a = captured["linearize_reduce_radial3_t"], \
+        cap_a["linearize_reduce_radial3_t", "refine"]
+    _reset_counts()
+    for a, kw in (held_a, refine_a):
+        _unreduced_then_reduce(a, kw)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"K2 unreduced, then K6 and K7, at the 200-view shapes (held, path A refine): launches "
+          f"{json.dumps({n: counts[n] for n in (UNREDUCED, 'segsum_table_t', 'segsum_sorted_t')})}")
+    if counts[UNREDUCED] != 2 or not counts["segsum_table_t"] or not counts["segsum_sorted_t"]:
+        raise AssertionError(f"the unreduced composition did not launch its kernels: {counts}")
+    entries[UNREDUCED]["launches"] = counts[UNREDUCED]
+    entries[UNREDUCED].update(_check_unreduced(held_a, "(a) 200-view final BA, held", card))
+    _check_unreduced(refine_a, "path A, refine", card)
+    (a2, kw2), _, _ = _bench_kernel_args(bench)
+    _check_unreduced((a2, kw2), "(b) 500-camera bench problem, held", card)
+    grp = torch.zeros_like(a2[4])
+    a2r = (a2[0], a2[1][:1], a2[2], a2[3], grp) + a2[5:]
+    kw2r = dict(kw2, refine=True, refine_mask=(1.0,) * 7, grp_layout=ot.obs_layout(grp, 1))
+    _check_unreduced((a2r, kw2r), "(b) 500-camera bench problem, refine, one group", card)
+
+
+def phase_gather_kernels(card: str, cap_g: dict, cap_b: dict, entries: dict) -> None:
+    """K8 and K9 at the shapes the 200-view gather run and path B's gather
+    solve gave them: bit-equal to their twins, zero rows outside the
+    table, repeats identical; timed beside index_select."""
+    print(f"Gather kernels at their path shapes on {card}")
+    entries["gather_table"].update(_check_kernel("gather_table", cap_g["gather_table", "D=6"],
+                                                 "200-view run, poses D=6"))
+    _check_kernel("gather_table", cap_g["gather_table", "D=7"], "200-view run, intrinsics D=7")
+    _check_kernel("gather_table", cap_g["gather_table", "D=9"],
+                  "200-view run, schur_diag Hpp^-1 rows D=9")
+    entries["gather_sorted"].update(_check_kernel("gather_sorted", cap_g["gather_sorted", "D=3"],
+                                                  "200-view run, points by rank"))
+    _check_kernel("gather_table", cap_b["gather_table", "D=6"], "path B, poses D=6")
+    _check_kernel("gather_table", cap_b["gather_table", "D=9"], "path B, one group D=9")
+    _check_kernel("gather_sorted", cap_b["gather_sorted", "D=3"], "path B, points by rank")
+
+
 BROWN_LENS = (-0.10, 0.015, 0.0, 0.008, -0.006)  # [k1 k2 k3 t1 t2], test_camera_models.py:153
 
 
 def phase_brown(card: str, entries: dict) -> dict:
     """Path B: Brown-T2 self-calibration of the bench problem through the
-    unfused kernel path and the plain path.  Returns the kernel solve's
-    last kernel calls."""
+    unfused kernel path and the plain path, then the kernel path again
+    with pallas_gathers=True (K8, K9), which must give the first kernel
+    solve's bits.  Returns the kernel solves' last kernel calls."""
     import numpy as np
     import torch
 
@@ -675,11 +901,14 @@ def phase_brown(card: str, entries: dict) -> dict:
                  n_groups=1)
     cfg = tba.BAConfig(max_iters=20, cg_iters=30, assume_sorted=True, refine_intrinsics=True,
                        camera_model="brown")
-    captured, res = {}, {}
+    captured, res, outs = {}, {}, {}
     for name, c in (("kernels (unfused), Brown-T2 self-calibrating", cfg),
-                    ("plain, Brown-T2 self-calibrating", dataclasses.replace(cfg, impl="xla"))):
+                    ("plain, Brown-T2 self-calibrating", dataclasses.replace(cfg, impl="xla")),
+                    ("kernels (unfused, pallas_gathers), Brown-T2 self-calibrating",
+                     dataclasses.replace(cfg, pallas_gathers=True))):
         with _recording(captured if name.startswith("kernels") else None) as (_, calls):
             out, launches = _timed_solve(bench, c, name, card, **group)
+        outs[name] = out
         g = out[0][0].cpu().numpy()
         init, final = float(out[4]["initial_cost"]), float(out[4]["final_cost"])
         print(f"  refined lens [k1 k2 k3 t1 t2] {np.round(g[4:], 5).tolist()} vs "
@@ -699,9 +928,20 @@ def phase_brown(card: str, entries: dict) -> dict:
                   f"{json.dumps({f'{n} {v}': c for (n, v), c in sorted(calls.items())})}")
             if any(calls[k] == 0 for k in need) or launches["linearize_reduce_radial3_t"]:
                 raise AssertionError(f"Brown-T2 solve: not the unfused kernel path: {dict(calls)}")
-            for n in NEW_KERNELS[1:]:
-                entries[n]["launches"] = launches[n]
-    ck, cp = res.values()
+            if "pallas_gathers" in name:
+                if not (launches["gather_table"] and launches["gather_sorted"]):
+                    raise AssertionError(f"{name}: K8 or K9 not launched: {launches}")
+            else:
+                for n in NEW_KERNELS[1:]:
+                    entries[n]["launches"] = launches[n]
+    first, gathered = (outs[n] for n in outs if n.startswith("kernels"))
+    same = [torch.equal(x, y) for x, y in zip(first[:4], gathered[:4])]
+    print(f"  pallas_gathers vs plain gathers: intrinsics, rotations, translations, points "
+          f"bit-equal {same}; final cost {float(gathered[4]['final_cost'])!r} vs "
+          f"{float(first[4]['final_cost'])!r}")
+    if not all(same) or float(gathered[4]["final_cost"]) != float(first[4]["final_cost"]):
+        raise AssertionError("path B with pallas_gathers differs from path B without it")
+    ck, cp, _ = res.values()
     if not abs(ck - cp) <= 1e-2 * cp:
         raise AssertionError(f"Brown-T2 kernel-path cost {ck} vs plain {cp}: more than 1e-2 apart")
     return captured
@@ -751,19 +991,25 @@ def main() -> int:
             "schur_bwd_t": ("ba_schur.cu", 1891),
             "schur_fwd_t": ("ba_schur.cu", 1796),
             "segsum_table_t": ("ba_segsum.cu", 1679),
-            "segsum_sorted_t": ("ba_segsum.cu", 1724)}.items():
+            "segsum_sorted_t": ("ba_segsum.cu", 1724),
+            "gather_table": ("ba_gather.cu", 95),
+            "gather_sorted": ("ba_gather.cu", 173),
+            UNREDUCED: ("ba_linearize.cu", 1262)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
-                         "bound_by": None, "library_ms": None}
+                         "bound_by": None, "library_ms": None, "device_ms": None}
     phase_slice20(entries["topk2_match"])
     captured = phase_slice200(entries)
     cap_a = phase_selfcal200(entries, FOCAL_START)
+    cap_g = phase_gathers200(entries)
     bench = phase_ba_kernels(card, captured, entries)
+    phase_unreduced(card, captured, cap_a, bench, entries)
     phase_ba_solve(bench, card)
     del bench
     cap_b = phase_brown(card, entries)
     phase_new_kernels(card, cap_a, cap_b, entries)
+    phase_gather_kernels(card, cap_g, cap_b, entries)
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

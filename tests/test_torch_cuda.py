@@ -273,3 +273,105 @@ def test_k4_k5_k6_k7_match_float64_twins_and_repeat_bit_for_bit(dev, k2_inputs):
     check(ot.segsum_table_t, ot.segsum_table_t_reference, (vals, ids, C), "K6 k=96")
     check(ot.segsum_table_t, ot.segsum_table_t_reference, (vals[:36], grp, 1), "K6, one segment")
     check(ot.segsum_sorted_t, ot.segsum_sorted_t_reference, (vals[:12], ranks, P), "K7 k=12")
+
+
+def test_k8_k9_bit_equal_to_twins_and_repeat(dev, k2_inputs):
+    """K8 on tables of 6, 7 and 9 columns with ids in any order, negative
+    and past the table; K9 on the rank-space points by sorted ranks across
+    the gap of 200, with invalid rows at 2^30: bit-equal to the twins, zero
+    rows outside the table, repeats identical."""
+    _, intr, pts, cam, _, ranks = k2_inputs[:6]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ids = cam.clone()
+    ids[::11] = -1
+    ids[3::13] = 70 + 5
+    P = pts.shape[0]
+    hinv_rows = torch.randn((P, 9), generator=gen, device=dev)
+    cases = [(ot.gather_table, ot.gather_table_reference, torch.randn((70, 6), generator=gen,
+                                                                       device=dev), ids),
+             (ot.gather_table, ot.gather_table_reference, intr, ids),
+             (ot.gather_table, ot.gather_table_reference, hinv_rows, ranks),
+             (ot.gather_sorted, ot.gather_sorted_reference, pts, ranks)]
+    for fn, twin, table, idx in cases:
+        before = dict(ot.LAUNCHES)
+        got = fn(table, idx)
+        assert torch.equal(got, fn(table, idx))
+        torch.cuda.synchronize()
+        assert ot.LAUNCHES[fn.__name__] == before[fn.__name__] + 2
+        assert torch.equal(got, twin(table, idx))
+        out = (idx < 0) | (idx >= table.shape[0])
+        assert bool(out.any()) and not bool(got[out].any())
+
+
+def _unreduced_args(k2_inputs, refine):
+    args = list(k2_inputs)
+    if refine:  # one group holds every row
+        args[1] = args[1][:1]
+        args[4] = torch.zeros_like(args[4])
+    return args
+
+
+@pytest.mark.parametrize("w_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("refine", [False, True])
+def test_k2_unreduced_matches_float64_twin_and_reduces_to_k2(dev, k2_inputs, refine, w_dtype):
+    """K2's unreduced mode: every value table within 4x the float32 twin's
+    error against the float64 twin, W within one bf16 ulp, repeats
+    bit-identical; K6 and K7 over its tables give K2's reduced sums
+    (rtol 2e-5, atol 1e-4 of each output's largest entry)."""
+    args = _unreduced_args(k2_inputs, refine)
+    kw = dict(refine=refine, refine_mask=(1.0,) * 7 if refine else (0.0,) * 7, huber_delta=4.0,
+              w_dtype=w_dtype)
+    got = ot.linearize_radial3_t(*args, **kw)
+    again = ot.linearize_radial3_t(*args, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == (5 if refine else 3) and all(torch.equal(a, b) for a, b in zip(got, again))
+    f32 = ot.linearize_radial3_t_reference(*args, **kw)
+    f64 = ot.linearize_radial3_t_reference(*_f64(args), **dict(kw, w_dtype="f32"))
+    for i in range(len(got)):
+        if i in (2, 4):
+            w64 = f64[i].double() if w_dtype == "f32" else f64[i].to(torch.bfloat16).double()
+            ulp = torch.maximum(got[i].double().abs(), w64.abs()) * 2.0 ** -7
+            assert bool(((got[i].double() - w64).abs() <= ulp + 1e-6 * float(w64.abs().max()))
+                        .all())
+        else:
+            _oracle_close(got[i], f32[i], f64[i].double(), f"unreduced output {i}")
+    cam, ranks, C, P = args[3], args[5], args[0].shape[0], args[2].shape[0]
+    red = ot.linearize_reduce_radial3_t(*args, **kw)
+
+    def close(a, b):
+        tol = 2e-5 * b.abs() + 1e-4 * float(b.abs().max())
+        assert bool(((a - b).abs() <= tol).all())
+
+    camred = ot.segsum_table_t(got[0], cam, C)
+    close(camred[:, :36], red[0][:, list(ot._FULL66)])
+    close(camred[:, 36:42], red[0][:, 21:27])
+    close(camred[:, -1], red[0][:, -1])
+    ptred = ot.segsum_sorted_t(got[1], ranks, P)
+    close(ptred[:, :9], red[1][:, list(ot._FULL33)])
+    close(ptred[:, 9:], red[1][:, 6:])
+    if refine:
+        close(camred[:, 42:84], red[0][:, 27:69])
+        grpred = ot.segsum_table_t(got[3], args[4], 1)
+        close(grpred[:, :49], red[3][:, list(ot._FULL77)])
+        close(grpred[:, 49:], red[3][:, 28:])
+
+
+def test_ba_gather_path_on_card_equals_plain_gathers(dev):
+    """70 cameras through the unfused kernel path with schur_diag, held and
+    self-calibrating one group: pallas_gathers=True (K8, K9 launched)
+    gives the same bits as the plain gathers, and the cost falls."""
+    args = _ba_args(point_sorted_ba_problem(70, 2000, vis_prob=0.3), dev)
+    group = dict(cam_group=torch.zeros(70, dtype=torch.long, device=dev), n_groups=1)
+    for refine, kw in ((False, {}), (True, group)):
+        cfg = tba.BAConfig(max_iters=6, fused_linearize=False, precond="schur_diag",
+                           refine_intrinsics=refine)
+        plain = tba.bundle_adjust(cfg=cfg, **args, **kw)
+        for name in ot.LAUNCHES:
+            ot.LAUNCHES[name] = 0
+        out = tba.bundle_adjust(cfg=dataclasses.replace(cfg, pallas_gathers=True), **args, **kw)
+        assert ot.LAUNCHES["gather_table"] > 0 and ot.LAUNCHES["gather_sorted"] > 0
+        assert ot.LAUNCHES["linearize_reduce_radial3_t"] == 0
+        for a, b in zip(out[:4], plain[:4]):
+            assert torch.equal(a, b)
+        assert float(out[4]["final_cost"]) == float(plain[4]["final_cost"])
+        assert float(out[4]["final_cost"]) < 0.1 * float(out[4]["initial_cost"])

@@ -338,3 +338,91 @@ def test_layout_chunks_cut_each_segment_in_order():
         lay.chunk_start.numpy(),
         np.concatenate([[0], np.cumsum(-(-counts // tot.CHUNK_ROWS))]))
     assert lay.chunk_start[-1] <= lay.chunk_bound
+
+
+# K2's unreduced mode: full row-major blocks, one column per row.
+_UNRED = {"held": (False, (0.0,) * 7), "all": (True, (1.0,) * 7),
+          "focal": (True, (1.0, 1.0) + (0.0,) * 5)}
+
+
+@pytest.mark.parametrize("w_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", list(_UNRED))
+def test_linearize_unreduced_twin_matches_reference(tables, mode, w_dtype):
+    """The unreduced twin against the reference's linearize_radial3_t
+    (interpret=True runs its sublane kernels, whose 512-row windows cover
+    the gap of 200): unpacked widths 43/85, 12, 18, 56, 21, W in w_dtype."""
+    refine, rm = _UNRED[mode]
+    kw = dict(refine=refine, refine_mask=rm, huber_delta=4.0, w_dtype=w_dtype)
+    want = jot.linearize_radial3_t(*_k2_args(tables, jot), interpret=True, **kw)
+    got = tot.linearize_radial3_t(*_k2_args(tables, tot), **kw)
+    O = len(tables["ranks"])
+    widths = (85, 12, 18, 56, 21) if refine else (43, 12, 18)
+    assert len(got) == len(want) == len(widths)
+    for g, w, k, name in zip(got, want, widths, ("camvals", "ptvals", "wc", "grpvals", "wg")):
+        assert tuple(g.shape) == (k, O), name
+        if name in ("wc", "wg") and w_dtype == "bf16":
+            assert g.dtype == torch.bfloat16
+            _bf16_close(g.float(), np.asarray(jnp.asarray(w, jnp.float32)), name)
+        else:
+            _close(g, w, name)
+    if mode == "focal":  # masked lanes are exact zeros in Hcg, Hgg, gg and Wg
+        assert torch.all(got[0][42:84].reshape(6, 7, -1)[:, 2:] == 0)
+        assert torch.all(got[3][:49].reshape(7, 7, -1)[2:] == 0)
+        assert torch.all(got[3][49 + 2:] == 0) and torch.all(got[4][6:] == 0)
+
+
+def test_linearize_radial3_is_the_transpose(tables):
+    """The sublane-layout entry point: obs_uv (O, 2) in, (O, k) tables
+    out, the transposes of linearize_radial3_t's, and equal to the
+    reference's linearize_radial3."""
+    kw = dict(refine=True, refine_mask=(1.0,) * 7, huber_delta=4.0, w_dtype="f32")
+    args = list(_k2_args(tables, tot))
+    args[6] = args[6].T
+    got = tot.linearize_radial3(*args, **kw)
+    t_layout = tot.linearize_radial3_t(*_k2_args(tables, tot), **kw)
+    jargs = list(_k2_args(tables, jot))
+    jargs[6] = jargs[6].T
+    want = jot.linearize_radial3(*jargs, interpret=True, **kw)
+    for g, t, w in zip(got, t_layout, want):
+        assert torch.equal(g, t.T)
+        _close(g, w, "sublane layout")
+
+
+def test_linearize_unreduced_float64_twin_is_the_oracle(tables):
+    kw = dict(refine=True, refine_mask=(1.0,) * 7, huber_delta=4.0, w_dtype="f32")
+    want = jot.linearize_radial3_t(*_k2_args(tables, jot), interpret=True, **kw)
+    args = tuple(a.double() if a.is_floating_point() else a for a in _k2_args(tables, tot))
+    got = tot.linearize_radial3_t(*args, **kw)
+    assert got[0].dtype == got[1].dtype == got[3].dtype == torch.float64
+    for i, name in ((0, "camvals"), (1, "ptvals"), (3, "grpvals")):
+        _close(got[i], want[i], name)
+
+
+@pytest.mark.parametrize("mode", ["held", "all"])
+def test_unreduced_tables_reduced_by_k6_k7_equal_the_reduced_mode(tables, mode):
+    """K6 (per camera, per group) and K7 (per rank) over the unreduced
+    tables give the reduced mode's packed sums: the full blocks equal the
+    packed ones through _FULL66/_FULL33/_FULL77 (the reference's
+    tests/test_obs_table.py:147-196, with its tolerance)."""
+    refine, rm = _UNRED[mode]
+    kw = dict(refine=refine, refine_mask=rm, huber_delta=4.0, w_dtype="f32")
+    args = _k2_args(tables, tot)
+    cam, ranks, C, P = args[3], args[5], tables["C"], tables["P"]
+    vals = tot.linearize_radial3_t(*args, **kw)
+    red = tot.linearize_reduce_radial3_t(*args, **kw)
+    camred = tot.segsum_table_t(vals[0], cam, C)
+    ptred = tot.segsum_sorted_t(vals[1], ranks, P)
+    full66, full33, full77 = (list(f) for f in (tot._FULL66, tot._FULL33, tot._FULL77))
+    close = dict(rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(red[0][:, full66].numpy(), camred[:, :36].numpy(), **close)
+    np.testing.assert_allclose(red[0][:, 21:27].numpy(), camred[:, 36:42].numpy(), **close)
+    np.testing.assert_allclose(red[0][:, -1].numpy(), camred[:, -1].numpy(), **close)
+    np.testing.assert_allclose(red[1][:, full33].numpy(), ptred[:, :9].numpy(), **close)
+    np.testing.assert_allclose(red[1][:, 6:].numpy(), ptred[:, 9:].numpy(), **close)
+    assert torch.equal(red[2], vals[2])
+    if refine:
+        np.testing.assert_allclose(red[0][:, 27:69].numpy(), camred[:, 42:84].numpy(), **close)
+        grpred = tot.segsum_table_t(vals[3], cam, C)
+        np.testing.assert_allclose(red[3][:, full77].numpy(), grpred[:, :49].numpy(), **close)
+        np.testing.assert_allclose(red[3][:, 28:].numpy(), grpred[:, 49:].numpy(), **close)
+        assert torch.equal(red[4], vals[4])

@@ -13,17 +13,18 @@ reference's from ``jax.jacfwd``; nothing needs autograd.
 The reference's Pallas path ``_lm_pallas`` becomes ``_lm_kernels``: the
 observation table is point-sorted once per solve, and linearization, the
 reduced right-hand side and every CG matvec run through the hand-written
-CUDA kernels K2-K7 (``ops/obs_table.py``; on CPU tensors, their plain
+CUDA kernels K2-K9 (``ops/obs_table.py``; on CPU tensors, their plain
 twins).  It runs for ``impl="pallas"`` on any device, and for
 ``impl="auto"`` on a CUDA device when the dense solve is not eligible (more
 than 64 cameras), where the reference runs those kernels on its chip.  It
 covers the reference's single-device contract: intrinsics held or refined
 per group, RADIAL3 through the fused K2 or any camera model (and more than
-2048 cameras or groups) through jacfwd and the segment sums K6/K7, and
-both preconditioners.  On the CPU, ``impl="auto"`` takes the plain PCG
-path, as the reference's ``impl="xla"`` does.  The LM and CG loops are
-Python loops that read one convergence flag from the device per
-iteration.
+2048 cameras or groups, or ``fused_linearize=False``) through jacfwd and
+the segment sums K6/K7, both preconditioners, and with ``pallas_gathers``
+the per-observation gathers through K8 and K9.  On the CPU,
+``impl="auto"`` takes the plain PCG path, as the reference's
+``impl="xla"`` does.  The LM and CG loops are Python loops that read one
+convergence flag from the device per iteration.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ class BAConfig:
     lambda_max: float = 1e8
     converge_rtol: float = 3e-6    # accepted-step relative improvement = converged
     fix_first_cam: bool = True     # gauge: camera 0's pose is held
-    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K7)
+    impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K9)
     precond: str = "hcc"           # kernel path's PCG preconditioner: "hcc" (damped Hcc
                                    # blocks) | "schur_diag" (exact S diagonal blocks)
     w_dtype: str = "bf16"          # kernel path: storage of the coupling table W ("bf16" | "f32")
@@ -65,6 +66,12 @@ class BAConfig:
                                    # (every id up to max(obs_pt) has a row; unobserved points
                                    # only trail), so the per-solve sort is skipped and
                                    # fractional obs weights are honoured
+    pallas_gathers: bool = False   # kernel path: the unfused linearization's and schur_diag's
+                                   # per-observation gathers go through K8 (tables of at most
+                                   # 4096 rows) and K9 (the rank-space point table)
+    fused_linearize: bool = True   # kernel path: RADIAL3 with at most 2048 cameras and groups
+                                   # linearizes through the fused K2; False takes the unfused
+                                   # path (jacfwd reduced by K6 and K7)
     dense_schur_max_dim: int = 384  # dense Cholesky of the reduced system up to this width
     dense_schur_max_bytes: int = 256 * 1024 * 1024  # cap on the coupling tables
     camera_model: str = "auto"     # "auto" (7 lanes RADIAL3, 9 Brown-T2) | "fisheye" | "spherical"
@@ -346,7 +353,7 @@ def _lm_loop(linearize, solve, ps, gi, pts, refine: bool, cfg: BAConfig, max_ite
 
 
 # ---------------------------------------------------------------------------
-# Kernel path: every observation-table pass through K2-K7
+# Kernel path: every observation-table pass through K2-K9
 # ---------------------------------------------------------------------------
 
 def camera_table(ps: torch.Tensor) -> torch.Tensor:
@@ -366,11 +373,12 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     solve (or taken as sorted under ``assume_sorted``), the whole point side
     of the state lives in rank space, and every pass over the table is a
     kernel call.  Linearization is K2 (fused, RADIAL3 with at most 2048
-    cameras and groups), else per-observation jacfwd Jacobians reduced
-    through K6 (cameras, groups) and K7 (point ranks); the right-hand side
-    is K4; a CG matvec is K3, or with refined intrinsics K5 on Wc and Wg,
-    then K4 on both.  Returns (ps, gi, pts, lambda, initial cost, final
-    cost, iterations)."""
+    cameras and groups, unless ``fused_linearize=False``), else
+    per-observation jacfwd Jacobians, on rows gathered by K8 and K9 under
+    ``pallas_gathers``, reduced through K6 (cameras, groups) and K7 (point
+    ranks); the right-hand side is K4; a CG matvec is K3, or with refined
+    intrinsics K5 on Wc and Wg, then K4 on both.  Returns (ps, gi, pts,
+    lambda, initial cost, final cost, iterations)."""
     if cfg.precond not in ("hcc", "schur_diag"):
         raise ValueError(f"precond must be 'hcc' or 'schur_diag', got {cfg.precond!r}")
     dev = pose0.device
@@ -378,7 +386,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     D, E = POSE_DIM, gintr0.shape[-1]
     refine = cfg.refine_intrinsics
     # K2's closed-form Jacobians are RADIAL3 (reference :668-669).
-    fused = (C <= 2048 and G <= 2048 and E == INTR_DIM
+    fused = (cfg.fused_linearize and C <= 2048 and G <= 2048 and E == INTR_DIM
              and cfg.camera_model in ("auto", "radial3"))
     if cfg.assume_sorted:
         # Rank IS the point id: no sort, and fractional weights stand.
@@ -413,6 +421,21 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     full66 = torch.tensor(ot._FULL66, device=dev)
     full33 = torch.tensor(ot._FULL33, device=dev)
     full77 = torch.tensor(ot._FULL77, device=dev)
+    # The per-group sum of camera rows in the self-calibrating matvec, as a
+    # product with this (G, C) 0/1 matrix: index_add_'s float atomics on the
+    # card would add in another order each call.
+    cam_to_grp = (torch.arange(G, device=dev)[:, None] == cam_group[None, :]).to(torch.float32) \
+        if refine else None
+
+    def gather(table, idx):
+        # K8 for tables of at most 4096 rows under pallas_gathers (reference :671-677).
+        if cfg.pallas_gathers and table.shape[0] <= 4096:
+            return ot.gather_table(table, idx)
+        return ot._gather_rows(table, idx)
+
+    def gather_pts(pts):
+        # The rank-space point table by rank: K9 under pallas_gathers (:679-686).
+        return ot.gather_sorted(pts, ranks) if cfg.pallas_gathers else ot._gather_rows(pts, ranks)
 
     def linearize_fused(ps, gi, pts):
         outs = ot.linearize_reduce_radial3_t(
@@ -432,9 +455,8 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     def linearize_unfused(ps, gi, pts):
         # Per-observation jacfwd Jacobians (XLA in the reference too),
         # reduced per camera and group by K6 and per rank by K7 (:768-818).
-        r, Jc, Jg, Jp = _obs_jacobians(ot._gather_rows(ps, obs_cam), ot._gather_rows(gi, obs_grp),
-                                       ot._gather_rows(pts, ranks), obs_uv, refine,
-                                       cfg.camera_model)
+        r, Jc, Jg, Jp = _obs_jacobians(gather(ps, obs_cam), gather(gi, obs_grp), gather_pts(pts),
+                                       obs_uv, refine, cfg.camera_model)
         cost = robust_cost(r, obs_w, cfg.huber_delta)
         w = (_huber_weight(r, cfg.huber_delta) * obs_w)[:, None]
         r = r * w
@@ -488,7 +510,8 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             M_inv_g = _invD(Hgg_d)
         if cfg.precond == "schur_diag":  # exact S diagonal blocks, reduced by K6
             W3 = Wc.to(torch.float32).T.reshape(-1, D, 3)
-            contrib = torch.einsum("oij,ojk,olk->oil", W3, ot._gather_rows(Hinv, ranks), W3)
+            Hinv_o = gather(Hinv.reshape(P, 9), ranks).reshape(-1, 3, 3)  # (:874-879)
+            contrib = torch.einsum("oij,ojk,olk->oil", W3, Hinv_o, W3)
             M_inv_c = _invD(Hcc_d - ot.segsum_table_t(
                 contrib.reshape(-1, D * D).T.contiguous(), obs_cam, C, layout=layout)
                 .reshape(C, D, D))
@@ -517,8 +540,8 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             bg = ot.schur_bwd_t(Wg, obs_grp, ranks, zz, G, layout=grp_layout)
             Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc) + torch.einsum("cde,ce->cd", Hcg,
                                                                        vg[cam_group])
-            Hvg = (torch.einsum("gef,gf->ge", Hgg_d, vg)
-                   + segment_sum(torch.einsum("cde,cd->ce", Hcg, vc), cam_group, G))
+            Hvg = torch.einsum("gef,gf->ge", Hgg_d, vg) + cam_to_grp @ torch.einsum(
+                "cde,cd->ce", Hcg, vc)
             return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}, y
 
         d, Wtd = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol,

@@ -18,6 +18,22 @@
 // The per-observation value tables never reach device memory; only the W
 // tables do (the CG loop reads them every matvec).
 //
+// Unreduced mode (tpusfm_ba_linearize_unreduced) replaces the TPU kernels
+// `_linearize_t_kernel` (wrapper `linearize_radial3_t`, obs_table.py:1325;
+// body :1262) and their sublane-layout twins `_linearize_kernel` and
+// `_linearize_big_kernel` (`linearize_radial3`, :540; :460, :498): the same
+// per-observation math, not reduced, each row's values written as one
+// column of the transposed tables
+//     camvalsT (43, O) = [Hcc row-major 36 | gc 6 | cost],
+//     ptvalsT  (12, O) = [Hpp row-major 9 | gp 3],
+//     wcT      (18, O),
+// and in refine mode camvalsT (85, O) = [Hcc 36 | gc 6 | Hcg 42 | cost],
+// grpvalsT (56, O) = [Hgg row-major 49 | gg 7] and wgT (21, O).  One
+// thread per observation, so a warp's 32 observations store 128
+// contiguous bytes of each table row.  It reads ~40 bytes a row and
+// writes 292 (f32 W; refine 660), against ~450 FLOPs (refine ~765): bound
+// by the bytes it writes.
+//
 // What bounds it: about 300 FLOPs of per-observation math in each pass
 // (refine adds ~100 for Jg and its products), against ~100 bytes moved per
 // observation (ids, uv, weight, point, the bf16 W rows) and more in 32-byte
@@ -336,6 +352,61 @@ int launch(const Tables& t, const int* rank_start, const int* seg_perm, const in
   return launch_chunk_finish(g.part, g.grp_chunk_start, t.G, kGrpVals, g.grpred, stream);
 }
 
+// Unreduced mode: one thread per observation writes its column of every
+// value table; a row whose camera or group id is out of range writes zeros.
+template <typename WT, bool kRefine>
+__global__ void __launch_bounds__(kThreads)
+lin_unreduced_kernel(Tables t, float* __restrict__ camvalsT, float* __restrict__ ptvalsT,
+                     WT* __restrict__ wcT, float* __restrict__ grpvalsT, WT* __restrict__ wgT) {
+  const int o = blockIdx.x * kThreads + threadIdx.x;
+  if (o >= t.O) return;
+  ObsLin lin;
+  if (!linearize_row_ranked<kRefine>(t, o, lin)) lin = ObsLin{};
+  const size_t O = t.O;
+  float* cam = camvalsT + o;
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int b = 0; b < 6; ++b) cam[k++ * O] = lin.jcu[a] * lin.jcu[b] + lin.jcv[a] * lin.jcv[b];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) cam[k++ * O] = lin.jcu[a] * lin.ru + lin.jcv[a] * lin.rv;
+  if (kRefine) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int e = 0; e < 7; ++e) cam[k++ * O] = lin.jcu[a] * lin.jgu[e] + lin.jcv[a] * lin.jgv[e];
+  }
+  cam[k * O] = lin.cost;
+  float* pt = ptvalsT + o;
+  k = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) pt[k++ * O] = lin.jpu[i] * lin.jpu[j] + lin.jpv[i] * lin.jpv[j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pt[k++ * O] = lin.jpu[i] * lin.ru + lin.jpv[i] * lin.rv;
+  write_w<WT, kRefine>(wcT, wgT, t.O, o, &lin);
+  if (kRefine) {
+    float* grp = grpvalsT + o;
+    k = 0;
+#pragma unroll
+    for (int a = 0; a < 7; ++a)
+#pragma unroll
+      for (int b = 0; b < 7; ++b) grp[k++ * O] = lin.jgu[a] * lin.jgu[b] + lin.jgv[a] * lin.jgv[b];
+#pragma unroll
+    for (int a = 0; a < 7; ++a) grp[k++ * O] = lin.jgu[a] * lin.ru + lin.jgv[a] * lin.rv;
+  }
+}
+
+template <typename WT, bool kRefine>
+int launch_unreduced(const Tables& t, float* camvalsT, float* ptvalsT, void* wcT,
+                     float* grpvalsT, void* wgT, cudaStream_t stream) {
+  lin_unreduced_kernel<WT, kRefine><<<(t.O + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      t, camvalsT, ptvalsT, static_cast<WT*>(wcT), grpvalsT, static_cast<WT*>(wgT));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Inputs as in the wrapper (ops/obs_table.py linearize_reduce_radial3_t):
@@ -373,4 +444,33 @@ extern "C" int tpusfm_ba_linearize(const float* camtab, const float* grptab, con
                                                ptred, wcT, stream)
                 : launch<float, false>(t, rank_start, seg_perm, seg_start, g, camred, ptred, wcT,
                                        stream);
+}
+
+// K2's unreduced mode (ops/obs_table.py linearize_radial3_t): the inputs
+// of tpusfm_ba_linearize without the layouts (rows in any order);
+// refine_mask (host, 7 floats) selects refine mode, which also writes
+// grpvalsT (56, O) and wgT (21, O) (null otherwise).  camvalsT (43 or 85,
+// O), ptvalsT (12, O) float32, wcT (18, O) of W's type.  Launches on
+// `stream` and returns the CUDA error code of the launch (0 = success).
+extern "C" int tpusfm_ba_linearize_unreduced(const float* camtab, const float* grptab,
+                                             const float* pts, const int* obs_cam,
+                                             const int* obs_grp, const int* ranks,
+                                             const float* uvT, const float* obs_w,
+                                             const float* refine_mask, int C, int G, int P, int O,
+                                             float huber_delta, int w_bf16, float* camvalsT,
+                                             float* ptvalsT, void* wcT, float* grpvalsT,
+                                             void* wgT, cudaStream_t stream) {
+  if (C <= 0 || G <= 0 || P <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
+  const bool refine = refine_mask != nullptr;
+  if (refine && (!grpvalsT || !wgT)) return (int)cudaErrorInvalidValue;
+  Tables t{camtab, grptab, pts, obs_cam, obs_grp, ranks, uvT, obs_w, C, G, P, O, huber_delta, {}};
+  for (int e = 0; e < 7; ++e) t.mask.m[e] = refine ? refine_mask[e] : 0.f;
+  if (refine)
+    return w_bf16 ? launch_unreduced<__nv_bfloat16, true>(t, camvalsT, ptvalsT, wcT, grpvalsT,
+                                                          wgT, stream)
+                  : launch_unreduced<float, true>(t, camvalsT, ptvalsT, wcT, grpvalsT, wgT,
+                                                  stream);
+  return w_bf16 ? launch_unreduced<__nv_bfloat16, false>(t, camvalsT, ptvalsT, wcT, grpvalsT, wgT,
+                                                         stream)
+                : launch_unreduced<float, false>(t, camvalsT, ptvalsT, wcT, grpvalsT, wgT, stream);
 }

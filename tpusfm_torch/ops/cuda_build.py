@@ -105,6 +105,11 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_segsum_table.restype = ci
         lib.tpusfm_ba_segsum_sorted.argtypes = [vp, ci, ci, vp, ci, vp, vp]
         lib.tpusfm_ba_segsum_sorted.restype = ci
+        lib.tpusfm_ba_linearize_unreduced.argtypes = ([vp] * 9 + [ci] * 4 + [ctypes.c_float, ci]
+                                                      + [vp] * 6)
+        lib.tpusfm_ba_linearize_unreduced.restype = ci
+        lib.tpusfm_ba_gather.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+        lib.tpusfm_ba_gather.restype = ci
         lib.tpusfm_cuda_error_string.argtypes = [ci]
         lib.tpusfm_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,8 +1,8 @@
 """Observation-table primitives of the bundle-adjustment kernel path:
-wrappers of the CUDA kernels K2-K7 and their plain PyTorch twins.
+wrappers of the CUDA kernels K2-K9 and their plain PyTorch twins.
 
 Port of the part of ``tpusfm/ops/obs_table.py`` that ``_lm_pallas`` runs
-for a single-device solve:
+for a single-device solve, and of its ops-layer entry points:
 
 - ``sort_and_rank_payload`` (XLA in the reference, plain torch here): the
   per-solve point sort and rank compaction of the observation table;
@@ -18,7 +18,11 @@ for a single-device solve:
 - ``schur_fwd_t`` (K5): y[r] = sum over the observations of rank r of
   W_o^T v[id_o];
 - ``segsum_table_t`` (K6) and ``segsum_sorted_t`` (K7): segment sums of a
-  (k, O) value table by unsorted id and by sorted rank.
+  (k, O) value table by unsorted id and by sorted rank;
+- ``gather_table`` (K8) and ``gather_sorted`` (K9): table[idx] by unsorted
+  id and by sorted rank, a zero row for ids outside the table;
+- ``linearize_radial3_t`` (K2's unreduced mode) and its sublane-layout twin
+  ``linearize_radial3``: K2's per-observation values, not reduced.
 
 Each wrapper keeps the reference's name, argument order and return
 contract.  For CPU tensors it returns its twin ``<name>_reference``; for
@@ -53,7 +57,8 @@ MAX_W_ROWS = 9     # K4/K5 take blocks of D <= 9 rows (Brown-T2 intrinsics)
 
 # Kernel launches (one per wrapper call) since the last reset.
 LAUNCHES = {"linearize_reduce_radial3_t": 0, "schur_mv_t": 0, "schur_bwd_t": 0,
-            "schur_fwd_t": 0, "segsum_table_t": 0, "segsum_sorted_t": 0}
+            "schur_fwd_t": 0, "segsum_table_t": 0, "segsum_sorted_t": 0,
+            "gather_table": 0, "gather_sorted": 0, "linearize_radial3_t": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -188,11 +193,12 @@ def _segsum_drop(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, torch.where(ok, ids, torch.full_like(ids, n)), vals)[:n]
 
 
-def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None):
+def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None,
+                   packed: bool = True):
     """Per-observation RADIAL3 linearization (reference
-    ``_linearize_math_t``, obs_table.py:1129-1259, packed): gathered camg
-    (O, 21), intg (O, 7), X (O, 3), uv (O, 2), w_in (O,) -> camvals (O, 28)
-    [Hcc packed 21 | gc 6 | cost], ptvals (O, 9) [Hpp packed 6 | gp 3], wc
+    ``_linearize_math_t``, obs_table.py:1129-1259): gathered camg (O, 21),
+    intg (O, 7), X (O, 3), uv (O, 2), w_in (O,) -> camvals (O, 28) [Hcc
+    packed 21 | gc 6 | cost], ptvals (O, 9) [Hpp packed 6 | gp 3], wc
     (O, 18) with wc[:, d*3+k] = (Jc^T Jp)[d, k].  Jacobians and residuals
     carry the Huber IRLS weight times w_in; rows with w_in <= 0 give exact
     zeros.
@@ -201,7 +207,11 @@ def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None
     its mask entry, :1192-1207) joins: camvals becomes (O, 70) [Hcc 21 |
     gc 6 | Hcg row-major 42 | cost], and grpvals (O, 35) [Hgg packed 28 |
     gg 7] and wg (O, 21) with wg[:, e*3+k] = (Jg^T Jp)[e, k] are returned
-    as well."""
+    as well.
+
+    packed=False gives the full row-major blocks instead of their upper
+    triangles (the reference's unreduced layout): Hcc 36, Hpp 9, Hgg 49,
+    so camvals (O, 43) or (O, 85), ptvals (O, 12), grpvals (O, 56)."""
     Rm = camg[:, 3:12].reshape(-1, 3, 3)
     Jr = camg[:, 12:21].reshape(-1, 3, 3)
     Xc = torch.einsum("oij,oj->oi", Rm, X) + camg[:, 0:3]
@@ -231,13 +241,20 @@ def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None
     Jc = torch.cat([L @ N, L], -1) * w[:, None, None]          # (O, 2, 6)
     Jp = (L @ Rm) * w[:, None, None]                           # (O, 2, 3)
     r = torch.stack([ru, rv], -1) * w[:, None]
-    iu6, ju6 = torch.triu_indices(6, 6)
-    iu3, ju3 = torch.triu_indices(3, 3)
-    Hcc = torch.einsum("oki,okj->oij", Jc, Jc)[:, iu6, ju6]
+
+    def block(J):  # (O, 2, n) -> J^T J per row, upper triangle or full row-major
+        n = J.shape[-1]
+        H = torch.einsum("oki,okj->oij", J, J)
+        if not packed:
+            return H.reshape(-1, n * n)
+        iu, ju = torch.triu_indices(n, n)
+        return H[:, iu, ju]
+
+    Hcc = block(Jc)
     gc = torch.einsum("oki,ok->oi", Jc, r)
     hcost = torch.where(nrm <= huber_delta, 0.5 * nrm * nrm, huber_delta * (nrm - 0.5 * huber_delta))
     cost = torch.where(valid, hcost * w_in, torch.zeros_like(hcost))
-    Hpp = torch.einsum("oki,okj->oij", Jp, Jp)[:, iu3, ju3]
+    Hpp = block(Jp)
     gp = torch.einsum("oki,ok->oi", Jp, r)
     wc = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, 18)
     ptvals = torch.cat([Hpp, gp], 1)
@@ -253,9 +270,8 @@ def linearize_math(camg, intg, X, uv, w_in, huber_delta: float, refine_mask=None
         torch.stack([zero, y * dist * m[1], zero, one * m[3],
                      fy * y * r2 * m[4], fy * y * r4 * m[5], fy * y * r6 * m[6]], -1)],
         1) * w[:, None, None]                                   # (O, 2, 7)
-    iu7, ju7 = torch.triu_indices(7, 7)
     Hcg = torch.einsum("oki,oke->oie", Jc, Jg).reshape(-1, 42)
-    Hgg = torch.einsum("oki,okj->oij", Jg, Jg)[:, iu7, ju7]
+    Hgg = block(Jg)
     gg = torch.einsum("oke,ok->oe", Jg, r)
     wg = torch.einsum("oke,okj->oej", Jg, Jp).reshape(-1, 21)
     return (torch.cat([Hcc, gc, Hcg, cost[:, None]], 1), ptvals, wc,
@@ -269,6 +285,40 @@ def _hat(v):
                         torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
 
 
+def _linearize_rows(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
+                    refine: bool, refine_mask: tuple, huber_delta: float, packed: bool):
+    """linearize_math over the table's rows, in the dtype of `camtab`: the
+    camera, group and point of each row gathered (a zero point at ranks
+    outside [0, P)), and every row whose camera or group id is outside
+    [0, C) or [0, G) weighted 0, so it gives exact zeros."""
+    dt = camtab.dtype
+    C, G = camtab.shape[0], grptab.shape[0]
+    cam_ok = (obs_cam >= 0) & (obs_cam < C) & (obs_grp >= 0) & (obs_grp < G)
+    w_in = torch.where(cam_ok, obs_w.to(dt), torch.zeros((), dtype=dt, device=camtab.device))
+    return linearize_math(
+        _gather_rows(camtab, obs_cam), _gather_rows(grptab.to(dt), obs_grp),
+        _gather_rows(pts_rank.to(dt), ranks), obs_uvT.to(dt).T, w_in, huber_delta,
+        refine_mask if refine else None, packed=packed)
+
+
+def linearize_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT,
+                                  obs_w, refine: bool = False, refine_mask: tuple = (0.0,) * 7,
+                                  huber_delta: float = 4.0, w_dtype: str = "f32"):
+    """Plain twin of K2's unreduced mode, in the dtype of `camtab`: the
+    per-observation value tables, transposed (reference :1325-1333, widths
+    :575).  Returns camvalsT (43, O) [Hcc 36 | gc 6 | cost], ptvalsT
+    (12, O) [Hpp 9 | gp 3], wcT (18, O) in w_dtype; with `refine`, camvalsT
+    (85, O) [Hcc 36 | gc 6 | Hcg row-major 42 | cost], and also grpvalsT
+    (56, O) [Hgg 49 | gg 7] and wgT (21, O) in w_dtype.  Every block is
+    full and row-major.  A row whose camera or group id is outside the
+    tables gives zeros in every table (the reference gathers a zero camera
+    or group row there and linearizes it; no caller passes such ids)."""
+    outs = _linearize_rows(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
+                           refine, refine_mask, huber_delta, packed=False)
+    wdt = _w_torch_dtype(w_dtype)
+    return tuple(o.T.to(wdt) if i in (2, 4) else o.T for i, o in enumerate(outs))
+
+
 def linearize_reduce_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks,
                                          obs_uvT, obs_w, refine: bool = False,
                                          refine_mask: tuple = (0.0,) * 7,
@@ -279,14 +329,9 @@ def linearize_reduce_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_
     with `refine`, camred (C, 70) [Hcc 21 | gc 6 | Hcg row-major 42 |
     cost], and also grpred (G, 35) [Hgg packed 28 | gg 7] and wgT (21, O)
     in w_dtype (reference :1540-1547)."""
-    dt = camtab.dtype
     C, G, P = camtab.shape[0], grptab.shape[0], pts_rank.shape[0]
-    cam_ok = (obs_cam >= 0) & (obs_cam < C) & (obs_grp >= 0) & (obs_grp < G)
-    w_in = torch.where(cam_ok, obs_w.to(dt), torch.zeros((), dtype=dt, device=camtab.device))
-    outs = linearize_math(
-        _gather_rows(camtab, obs_cam), _gather_rows(grptab.to(dt), obs_grp),
-        _gather_rows(pts_rank.to(dt), ranks), obs_uvT.to(dt).T, w_in, huber_delta,
-        refine_mask if refine else None)
+    outs = _linearize_rows(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
+                           refine, refine_mask, huber_delta, packed=True)
     wdt = _w_torch_dtype(w_dtype)
     camred = _segsum_drop(outs[0], obs_cam, C)
     ptred = _segsum_drop(outs[1], ranks, P)
@@ -342,6 +387,20 @@ def segsum_sorted_t_reference(valsT, idx_sorted, p: int):
     """Plain twin of K7: valsT (k, O), ranks (O,) -> (p, k) sums by rank;
     rows with rank >= p are dropped."""
     return _segsum_drop(valsT.T, idx_sorted, p)
+
+
+def gather_table_reference(table, idx):
+    """Plain twin of K8: table (N, D), idx (O,) -> (O, D) = table[idx] in
+    the dtype of `table`, a zero row for every id outside [0, N)."""
+    return _gather_rows(table, idx)
+
+
+def gather_sorted_reference(table, idx_sorted):
+    """Plain twin of K9: table (P, D), non-decreasing ranks (O,) -> (O, D) =
+    table[idx_sorted], a zero row for every rank outside [0, P).  Ranks
+    need not be dense (the reference's windowed kernel zeroes a row whose
+    rank jumps past its two-block window)."""
+    return _gather_rows(table, idx_sorted)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +464,23 @@ def _check_w(name: str, wT: torch.Tensor, o: int, dd3: int | None = None):
         raise ValueError(f"{name}: wT must be contiguous")
 
 
+def _check_lin_inputs(name, camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
+                      refine, refine_mask) -> tuple[int, int, int, int]:
+    """K2's input shapes checked; returns (C, G, P, O)."""
+    C, G, P, O = camtab.shape[0], grptab.shape[0], pts_rank.shape[0], ranks.shape[0]
+    _check_shape("camtab", camtab, (C, LIN_CAM_DIM))
+    _check_shape("grptab", grptab, (G, 7))
+    _check_shape("pts_rank", pts_rank, (P, 3))
+    for nm, t in (("obs_cam", obs_cam), ("obs_grp", obs_grp), ("obs_w", obs_w)):
+        _check_shape(nm, t, (O,))
+    _check_shape("obs_uvT", obs_uvT, (2, O))
+    if min(C, G, P, O) < 1:
+        raise ValueError(f"{name} needs at least one camera, group, point and observation")
+    if refine and len(refine_mask) != 7:
+        raise ValueError(f"refine_mask must have 7 entries, got {len(refine_mask)}")
+    return C, G, P, O
+
+
 def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT,
                                obs_w, refine: bool = False, refine_mask: tuple = (0.0,) * 7,
                                huber_delta: float = 4.0, w_dtype: str = "f32", *,
@@ -426,18 +502,8 @@ def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks
             camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine,
             refine_mask, huber_delta, w_dtype)
     wdt = _w_torch_dtype(w_dtype)
-    C, G, P, O = camtab.shape[0], grptab.shape[0], pts_rank.shape[0], ranks.shape[0]
-    _check_shape("camtab", camtab, (C, LIN_CAM_DIM))
-    _check_shape("grptab", grptab, (G, 7))
-    _check_shape("pts_rank", pts_rank, (P, 3))
-    for nm, t in (("obs_cam", obs_cam), ("obs_grp", obs_grp), ("obs_w", obs_w)):
-        _check_shape(nm, t, (O,))
-    _check_shape("obs_uvT", obs_uvT, (2, O))
-    if min(C, G, P, O) < 1:
-        raise ValueError("linearize_reduce_radial3_t needs at least one camera, group, "
-                         "point and observation")
-    if refine and len(refine_mask) != 7:
-        raise ValueError(f"refine_mask must have 7 entries, got {len(refine_mask)}")
+    C, G, P, O = _check_lin_inputs("linearize_reduce_radial3_t", camtab, grptab, pts_rank,
+                                   obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine, refine_mask)
     lay = _layout_for(layout, obs_cam, C, ranks, P, need_ranks=True)
     camtab, grptab, pts = _f32(camtab), _f32(grptab), _f32(pts_rank)
     cam, grp, rk = _i32(obs_cam), _i32(obs_grp), _i32(ranks)
@@ -472,6 +538,61 @@ def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks
     if refine:
         return camred, ptred, wcT, grpred, wgT
     return camred, ptred, wcT
+
+
+def linearize_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
+                        refine: bool = False, refine_mask: tuple = (0.0,) * 7,
+                        huber_delta: float = 4.0, w_dtype: str = "f32"):
+    """K2's unreduced mode: the per-observation value tables of K2's math,
+    transposed, one column per row of the table (inputs as
+    linearize_reduce_radial3_t; the rows need not be sorted).  Returns
+    camvalsT (43, O) [Hcc 36 | gc 6 | cost], ptvalsT (12, O) [Hpp 9 | gp
+    3] float32 and wcT (18, O) in w_dtype; with `refine`, camvalsT (85, O)
+    [Hcc 36 | gc 6 | Hcg 42 | cost], grpvalsT (56, O) [Hgg 49 | gg 7] and
+    wgT (21, O) as well.  Blocks are full and row-major; see the twin."""
+    if not _dispatch("linearize_radial3_t", camtab, grptab, pts_rank, obs_cam, obs_grp, ranks,
+                     obs_uvT, obs_w):
+        return linearize_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks,
+                                             obs_uvT, obs_w, refine, refine_mask, huber_delta,
+                                             w_dtype)
+    wdt = _w_torch_dtype(w_dtype)
+    C, G, P, O = _check_lin_inputs("linearize_radial3_t", camtab, grptab, pts_rank, obs_cam,
+                                   obs_grp, ranks, obs_uvT, obs_w, refine, refine_mask)
+    camtab, grptab, pts = _f32(camtab), _f32(grptab), _f32(pts_rank)
+    cam, grp, rk = _i32(obs_cam), _i32(obs_grp), _i32(ranks)
+    uvT, w = _f32(obs_uvT), _f32(obs_w)
+    dev = camtab.device
+    outs = [torch.empty((85 if refine else 43, O), dtype=torch.float32, device=dev),
+            torch.empty((12, O), dtype=torch.float32, device=dev),
+            torch.empty((18, O), dtype=wdt, device=dev)]
+    mask = None
+    if refine:
+        outs += [torch.empty((56, O), dtype=torch.float32, device=dev),
+                 torch.empty((21, O), dtype=wdt, device=dev)]
+        mask = (ctypes.c_float * 7)(*(float(m) for m in refine_mask))
+    ptrs = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
+    lib = cuda_build.kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpusfm_ba_linearize_unreduced(
+            camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(), grp.data_ptr(),
+            rk.data_ptr(), uvT.data_ptr(), w.data_ptr(),
+            None if mask is None else ctypes.addressof(mask), C, G, P, O, float(huber_delta),
+            int(wdt == torch.bfloat16), *ptrs, stream)
+    cuda_build.check(lib, err, "linearize_radial3_t launch")
+    LAUNCHES["linearize_radial3_t"] += 1
+    return tuple(outs)
+
+
+def linearize_radial3(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uv, obs_w,
+                      refine: bool = False, refine_mask: tuple = (0.0,) * 7,
+                      huber_delta: float = 4.0, w_dtype: str = "f32"):
+    """The sublane-layout twin of linearize_radial3_t (reference :540): obs_uv
+    (O, 2), and each value table (O, k), the transpose of
+    linearize_radial3_t's (views, not copies)."""
+    outs = linearize_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uv.T,
+                               obs_w, refine, refine_mask, huber_delta, w_dtype)
+    return tuple(o.T for o in outs)
 
 
 def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
@@ -634,3 +755,41 @@ def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = Non
     cuda_build.check(lib, err, "segsum_sorted_t launch")
     LAUNCHES["segsum_sorted_t"] += 1
     return out
+
+
+def _launch_gather(name: str, table, idx) -> torch.Tensor:
+    """K8 and K9 share one kernel: out (O, D) float32 = table[idx], a zero
+    row for every id outside [0, N)."""
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"{name}: table must be (N, D) and idx (O,), got "
+                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
+    (n, d), o = table.shape, idx.shape[0]
+    tab, ids = _f32(table), _i32(idx)
+    out = torch.empty((o, d), dtype=torch.float32, device=tab.device)
+    if o * d == 0:
+        return out
+    lib = cuda_build.kernels()
+    with torch.cuda.device(tab.device):
+        stream = torch.cuda.current_stream(tab.device).cuda_stream
+        err = lib.tpusfm_ba_gather(tab.data_ptr(), n, d, ids.data_ptr(), o, out.data_ptr(), stream)
+    cuda_build.check(lib, err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return out
+
+
+def gather_table(table, idx):
+    """K8: table (N, D), idx (O,) ids in any order -> (O, D) float32 =
+    table[idx], a zero row for every id outside [0, N)."""
+    if not _dispatch("gather_table", table, idx):
+        return gather_table_reference(table, idx)
+    return _launch_gather("gather_table", table, idx)
+
+
+def gather_sorted(table, idx_sorted):
+    """K9: table (P, D) by rank, idx_sorted (O,) non-decreasing ranks ->
+    (O, D) float32 = table[idx_sorted], a zero row for every rank outside
+    [0, P) (invalid rows carry 2^30).  Ranks need not be dense; sorted, they
+    make neighbouring threads read neighbouring rows."""
+    if not _dispatch("gather_sorted", table, idx_sorted):
+        return gather_sorted_reference(table, idx_sorted)
+    return _launch_gather("gather_sorted", table, idx_sorted)
