@@ -64,10 +64,12 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    then the kernel path again with pallas_gathers=True (K8, K9), which
    must give the same intrinsics, poses, points and final cost bit for bit;
 12. K2 refine, K4 (D = 7, 9), K5 (D = 6, 7, 9), K6, K7 against their
-   twins at the shapes paths A and B gave them, as phase 8;
+   twins at the shapes paths A and B gave them, as phase 8; K6 at path B
+   on the captured row-major table and on a lane-major copy, bit-equal,
+   both timed;
 13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
    to their twins with zero rows outside the table, timed beside
-   index_select.
+   index_select; K6 at the gather run's shapes (k = 42 and 36).
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode: route, source, the TPU kernel it replaces,
@@ -79,8 +81,8 @@ device time from torch.profiler, the least time the card could take (bytes
 at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is larger) and
 what bounds it, and the time of one PyTorch call computing the same
 function where there is one (index_add_ for K6, K7, index_select for K8,
-K9), all at the kernel's main-path shape; the last line is {"ok": true,
-"device": {...}}.
+K9), by CUDA events and by torch.profiler (library_device_ms), all at the
+kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when no CUDA device is visible or the
 port is not importable.
 """
@@ -137,13 +139,15 @@ def _median_ms(fn, warmup: int = 2, runs: int = 10) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _device_ms(fn, runs: int = 10) -> float:
+def _device_ms(fn, runs: int = 10, attempts: int = 3) -> float | None:
     """Device time of one call from torch.profiler's kernel records over
     `runs` calls after two warm-ups: for each kernel the call launches
     (each wrapper here launches each of its kernels once), its mean
     recorded duration, summed.  A mean per kernel stays right where the
     profiler misses records, as it does late in this script's run on the
-    card; kernels with fewer records than calls are printed."""
+    card; kernels with fewer records than calls are printed.  A window in
+    which it kept no kernel record is profiled again, up to `attempts`
+    times; None if none kept one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -152,15 +156,26 @@ def _device_ms(fn, runs: int = 10) -> float:
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    rows = _device_kernels(prof)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_kernels(prof)
+        if rows:
+            break
+        print(f"    profiler kept no kernel record of {runs} calls")
+    else:
+        return None
     short = [(name[:60], n) for name, n, _ in rows if n != runs]
     if short:
         print(f"    profiler kept {short} kernel records of {runs} calls")
     return sum(us / n for _, n, us in rows) / 1e3
+
+
+def _dev(ms: float | None) -> str:
+    """A device time for printing; None where the profiler kept no record."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_device():
@@ -259,11 +274,11 @@ def phase_kernel(card: str) -> dict:
     bound = _bound([da, db, mb], list(out), 192 * flops)
     dev_ms = _device_ms(lambda: k1.match_topk2(da, db, mb))
     print(f"K1 bound at the 192-pair chunk: {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
-          f"device time {dev_ms:.4f} ms")
+          f"device time {_dev(dev_ms)}")
     return {"name": "topk2_match", "route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
             "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
             "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
-            "device_ms": dev_ms}
+            "device_ms": dev_ms, "library_device_ms": None}
 
 
 def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
@@ -592,7 +607,8 @@ def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
     float64 twin (the W tables of `w_outputs` within one bf16 ulp; K8 and
     K9 bit-equal to the float32 twin), median ms of kernel, float32 twin
     and, where one PyTorch call computes the same function, that call; the
-    device time from torch.profiler; its bound."""
+    device time from torch.profiler of the kernel and of that call; its
+    bound."""
     import torch
 
     from tpusfm_torch.ops import obs_table as ot
@@ -625,14 +641,17 @@ def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
                                  "twin by more than one bf16 ulp")
         print(f"    {name} output {i} ({g.dtype}): within one bf16 ulp of the float64 twin "
               f"(max abs diff {float(diff.max()):.3e})")
+    library = LIBRARY[name][0](a) if name in LIBRARY else None
     res = {"max_abs_err": max(errs), "ms": _median_ms(lambda: fn(*a, **kw)),
            "plain_ms": _median_ms(lambda: twin(*a, **tw)),
-           "library_ms": _median_ms(LIBRARY[name][0](a)) if name in LIBRARY else None,
-           "device_ms": _device_ms(lambda: fn(*a, **kw))}
+           "library_ms": None if library is None else _median_ms(library),
+           "device_ms": _device_ms(lambda: fn(*a, **kw)),
+           "library_device_ms": None if library is None else _device_ms(library)}
     ins = [t for t in list(a) + list(tw.values()) if isinstance(t, torch.Tensor)]
     res.update(_bound(ins, got, _flops(name, a, kw)))
-    lib = "" if res["library_ms"] is None else f", {LIBRARY[name][1]} {res['library_ms']:.4f} ms"
-    print(f"  {name} at {label}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms), "
+    lib = "" if library is None else (f", {LIBRARY[name][1]} {res['library_ms']:.4f} ms "
+                                      f"(device {_dev(res['library_device_ms'])})")
+    print(f"  {name} at {label}: kernel {res['ms']:.4f} ms (device {_dev(res['device_ms'])}), "
           f"float32 twin {res['plain_ms']:.4f} ms{lib}, bound {res['bound_ms']:.4f} ms "
           f"({res['bound_by']}), max abs err vs float64 twin {res['max_abs_err']:.3e}")
     return res
@@ -863,11 +882,43 @@ def phase_unreduced(card: str, captured: dict, cap_a: dict, bench: dict, entries
     _check_unreduced((a2r, kw2r), "(b) 500-camera bench problem, refine, one group", card)
 
 
+def _check_k6_layouts(call, label: str) -> None:
+    """K6 on a captured row-major table (the (k, O) view of the producer's
+    (O, k) table) and on a lane-major copy of it, which K6 first transposes:
+    bit-equal, both timed."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
+    (valsT, idx, n), kw = call
+    lane = valsT.contiguous()
+    if ot.segsum_lane_major(valsT) or not ot.segsum_lane_major(lane):
+        raise AssertionError(f"K6 at {label}: the captured table is not row-major")
+    row_out = ot.segsum_table_t(valsT, idx, n, **kw)
+    lane_out = ot.segsum_table_t(lane, idx, n, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(row_out, lane_out):
+        raise AssertionError(f"K6 at {label}: row-major and lane-major tables give other sums")
+    t = {name: (_median_ms(f), _device_ms(f)) for name, f in
+         (("row", lambda: ot.segsum_table_t(valsT, idx, n, **kw)),
+          ("lane", lambda: ot.segsum_table_t(lane, idx, n, **kw)))}
+    print(f"  segsum_table_t layouts at {label}: row-major view {t['row'][0]:.4f} ms (device "
+          f"{_dev(t['row'][1])}), lane-major {t['lane'][0]:.4f} ms (device {_dev(t['lane'][1])}, "
+          f"its transpose included); sums bit-equal")
+    del lane
+    torch.cuda.empty_cache()
+
+
 def phase_gather_kernels(card: str, cap_g: dict, cap_b: dict, entries: dict) -> None:
     """K8 and K9 at the shapes the 200-view gather run and path B's gather
     solve gave them: bit-equal to their twins, zero rows outside the
-    table, repeats identical; timed beside index_select."""
+    table, repeats identical; timed beside index_select.  K6 at the gather
+    run's shapes (32,768 rows: per camera k = 42, schur_diag k = 36)."""
     print(f"Gather kernels at their path shapes on {card}")
+    _check_kernel("segsum_table_t", cap_g["segsum_table_t", "k=42"],
+                  "200-view gather run, cameras, k=42")
+    _check_kernel("segsum_table_t", cap_g["segsum_table_t", "k=36"],
+                  "200-view gather run, schur_diag blocks, k=36")
     entries["gather_table"].update(_check_kernel("gather_table", cap_g["gather_table", "D=6"],
                                                  "200-view run, poses D=6"))
     _check_kernel("gather_table", cap_g["gather_table", "D=7"], "200-view run, intrinsics D=7")
@@ -964,6 +1015,9 @@ def phase_new_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> Non
     entries["segsum_table_t"].update(_check_kernel(
         "segsum_table_t", cap_b["segsum_table_t", "k=96"], "path B, cameras, k=96"))
     _check_kernel("segsum_table_t", cap_b["segsum_table_t", "k=90"], "path B, one group, k=90")
+    for key, label in ((("segsum_table_t", "k=96"), "path B, cameras, k=96"),
+                       (("segsum_table_t", "k=90"), "path B, one group, k=90")):
+        _check_k6_layouts(cap_b[key], label)
     entries["segsum_sorted_t"].update(_check_kernel(
         "segsum_sorted_t", cap_b["segsum_sorted_t", "k=12"], "path B, point ranks, k=12"))
 
@@ -998,7 +1052,8 @@ def main() -> int:
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
-                         "bound_by": None, "library_ms": None, "device_ms": None}
+                         "bound_by": None, "library_ms": None, "device_ms": None,
+                         "library_device_ms": None}
     phase_slice20(entries["topk2_match"])
     captured = phase_slice200(entries)
     cap_a = phase_selfcal200(entries, FOCAL_START)

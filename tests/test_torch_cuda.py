@@ -275,6 +275,74 @@ def test_k4_k5_k6_k7_match_float64_twins_and_repeat_bit_for_bit(dev, k2_inputs):
     check(ot.segsum_sorted_t, ot.segsum_sorted_t_reference, (vals[:12], ranks, P), "K7 k=12")
 
 
+@pytest.mark.parametrize("k,n", [(1, 12), (33, 12), (96, 12), (33, 700), (96, 700)])
+def test_k6_row_and_lane_major_give_the_same_bits(dev, k, n):
+    """K6 on a row-major view x.T and on the lane-major copy of the same
+    table: bit-equal to each other and on a repeat, within 4x the float32
+    twin's error against the float64 twin; one segment holds more than two
+    chunks of rows, one segment none, and ids fall outside [0, n).  With
+    12 segments the row pass gets few chunks (1024-thread blocks), with 700
+    more than four per SM of an H100 (256-thread blocks)."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    O = 4 * ot.CHUNK_ROWS + 517
+    ids = torch.randint(0, n, (O,), generator=gen, device=dev, dtype=torch.int32)
+    ids = torch.where(torch.rand(O, generator=gen, device=dev) < 0.7, 0, ids)
+    ids[ids == 5] = 6
+    ids[::13] = -1
+    ids[5::17] = n + 3
+    assert int((ids == 0).sum()) > 2 * ot.CHUNK_ROWS
+    x = torch.randn((O, k), generator=gen, device=dev)
+    row, lane = x.T, x.T.contiguous()
+    assert not ot.segsum_lane_major(row) and ot.segsum_lane_major(lane) == (k > 1)
+    before = ot.LAUNCHES["segsum_table_t"]
+    got = ot.segsum_table_t(row, ids, n)
+    assert torch.equal(got, ot.segsum_table_t(row, ids, n))
+    assert torch.equal(got, ot.segsum_table_t(lane, ids, n))
+    torch.cuda.synchronize()
+    assert ot.LAUNCHES["segsum_table_t"] == before + 3
+    assert not bool(got[5].any())
+    _oracle_close(got, ot.segsum_table_t_reference(row, ids, n),
+                  ot.segsum_table_t_reference(row.double(), ids, n), f"K6 k={k}")
+
+
+def test_k6_refuses_other_strides(dev):
+    x = torch.zeros((300, 96), device=dev)
+    ids = torch.zeros(300, dtype=torch.int32, device=dev)
+    for bad, idx in ((x.T[:36], ids), (x.T[:, ::2], ids[::2]), (x.T.contiguous()[::2], ids)):
+        with pytest.raises(ValueError, match="strides"):
+            ot.segsum_table_t(bad, idx, 1)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_k5_warp_per_rank_matches_float64_twin_and_repeats(dev, w_dtype):
+    """K5 at D = 1 to 9 on ranks of 0, 1, 31, 32, 33 and 3,000 rows (around
+    and far past a warp's 32 lanes), a run of ranks with no rows, empty
+    ranks past the last row, rows at rank 2^30 and ids outside [0, n):
+    within 4x the float32 twin's error against the float64 twin, zero at
+    the empty ranks, repeats bit-identical."""
+    lengths = [3, 0, 1, 31, 32, 33, 3000, 0, 0, 0, 17, 64, 65, 2]
+    P = len(lengths) + 3
+    ranks = np.concatenate([np.repeat(np.arange(len(lengths)), lengths), np.full(40, 2 ** 30)])
+    O, n = len(ranks), 11
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ranks = torch.as_tensor(ranks.astype(np.int32), device=dev)
+    ids = torch.randint(0, n, (O,), generator=gen, device=dev, dtype=torch.int32)
+    ids[::7] = -1
+    ids[3::11] = n + 2
+    empty = torch.as_tensor([i for i in range(P) if i >= len(lengths) or not lengths[i]],
+                            device=dev)
+    layout = ot.obs_layout(ids, n, ranks, P)
+    for d in range(1, ot.MAX_W_ROWS + 1):
+        W = torch.randn((3 * d, O), generator=gen, device=dev).to(w_dtype)
+        v = torch.randn((n, d), generator=gen, device=dev)
+        got = ot.schur_fwd_t(W, ids, ranks, v, P, layout=layout)
+        assert torch.equal(got, ot.schur_fwd_t(W, ids, ranks, v, P, layout=layout)), d
+        torch.cuda.synchronize()
+        assert not bool(got[empty].any()), d
+        _oracle_close(got, ot.schur_fwd_t_reference(W, ids, ranks, v, P),
+                      ot.schur_fwd_t_reference(W, ids, ranks, v.double(), P), f"K5 D={d}")
+
+
 def test_k8_k9_bit_equal_to_twins_and_repeat(dev, k2_inputs):
     """K8 on tables of 6, 7 and 9 columns with ids in any order, negative
     and past the table; K9 on the rank-space points by sorted ranks across

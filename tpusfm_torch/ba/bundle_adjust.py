@@ -467,8 +467,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         if refine:
             Jg = Jg * (w[..., None] * refine_m[None, None, :])
             camvals.append(torch.einsum("oki,okj->oij", Jc, Jg).reshape(-1, D * E))
-        camred = ot.segsum_table_t(torch.cat(camvals, 1).T.contiguous(), obs_cam, C,
-                                   layout=layout)
+        camred = ot.segsum_table_t(torch.cat(camvals, 1).T, obs_cam, C, layout=layout)
         ptvals = torch.cat([torch.einsum("oki,okj->oij", Jp, Jp).reshape(-1, 9),
                             torch.einsum("oki,ok->oi", Jp, r)], 1)
         ptred = ot.segsum_sorted_t(ptvals.T.contiguous(), ranks, P, layout=layout)
@@ -480,7 +479,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             sys["Hcg"] = camred[:, D * D + D:].reshape(C, D, E)
             grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
                                  torch.einsum("oki,ok->oi", Jg, r)], 1)
-            grpred = ot.segsum_table_t(grpvals.T.contiguous(), obs_grp, G, layout=grp_layout)
+            grpred = ot.segsum_table_t(grpvals.T, obs_grp, G, layout=grp_layout)
             sys["Hgg"] = grpred[:, :E * E].reshape(G, E, E)
             sys["gg"] = grpred[:, E * E:]
             sys["Wg"] = torch.einsum("oki,okj->oij", Jg, Jp).reshape(-1, E * 3).to(wdt).T \
@@ -513,7 +512,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             Hinv_o = gather(Hinv.reshape(P, 9), ranks).reshape(-1, 3, 3)  # (:874-879)
             contrib = torch.einsum("oij,ojk,olk->oil", W3, Hinv_o, W3)
             M_inv_c = _invD(Hcc_d - ot.segsum_table_t(
-                contrib.reshape(-1, D * D).T.contiguous(), obs_cam, C, layout=layout)
+                contrib.reshape(-1, D * D).T, obs_cam, C, layout=layout)
                 .reshape(C, D, D))
         else:  # damped Hcc blocks: one obs-table pass fewer
             M_inv_c = _invD(Hcc_d)

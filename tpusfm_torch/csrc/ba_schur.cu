@@ -17,21 +17,28 @@
 //
 // What bounds them: 6D FLOPs per observation and direction against 6D bytes
 // of bf16 W plus ids and a 12-byte point row per observation: well under one
-// FLOP per byte, so memory-bound; the segment passes read W through a
-// permutation, so each row costs up to 3D separate 32-byte sectors and not
-// 6D bytes.  The TPU kernels' one-hot contractions, 128-lane rank windows
-// and bf16 three-way splits do not carry over: tables are indexed directly,
-// so ranks need not be dense, and rows with rank >= P contribute nothing
-// and are never read.
+// FLOP per byte, so memory-bound.  The rows of a rank are contiguous in the
+// rank-sorted table, so K5 gives each rank one warp whose lanes take the
+// rank's rows l, l + 32, ...: the loads of each W row and of the ids are
+// coalesced, and a 2,048-rank table fills 256 blocks instead of the 8 that
+// a thread per rank gives.  A track shorter than 32 rows leaves lanes idle
+// (about half at the 200-view rung's ~16).  K3's rank pass still gives each
+// rank one thread (rank_wtv).  The segment passes (K3's camera pass, K4)
+// read W through a permutation, so each row costs up to 3D separate 32-byte
+// sectors and not 6D bytes.  The TPU kernels' one-hot contractions, 128-lane
+// rank windows and bf16 three-way splits do not carry over: tables are
+// indexed directly, so ranks need not be dense, and rows with rank >= P
+// contribute nothing and are never read.
 //
-// Determinism: no atomics.  The rank passes (K3's first half, K5) give each
-// rank one thread that walks its rows [rank_start[r], rank_start[r+1]) in
-// order.  K3's camera pass gives each camera one block whose thread t takes
-// the camera's rows t, t + 256, ... of a stable permutation, then sums the
-// threads with a fixed shuffle tree.  K4 sums a segment the same way per
-// fixed chunk of its rows and adds the chunks in order (ba_common.cuh): an
-// intrinsic group may hold every row of the table.  Two calls on the same
-// inputs give the same bits.
+// Determinism: no atomics.  K3's rank pass gives each rank one thread that
+// walks its rows [rank_start[r], rank_start[r+1]) in order; K5's lanes each
+// sum their rows in order and the warp adds the 32 partial sums with a fixed
+// shuffle tree.  K3's camera pass gives each camera one block whose thread
+// t takes the camera's rows t, t + 256, ... of a stable permutation, then
+// sums the threads with a fixed shuffle tree.  K4 sums a segment the same
+// way per fixed chunk of its rows and adds the chunks in order
+// (ba_common.cuh): an intrinsic group may hold every row of the table.  Two
+// calls on the same inputs give the same bits.
 
 #include "ba_common.cuh"
 
@@ -92,19 +99,55 @@ schur_rank_kernel(const WT* __restrict__ wT, const int* __restrict__ obs_cam,
     z[(size_t)r * 3 + i] = h[i * 3] * a[0] + h[i * 3 + 1] * a[1] + h[i * 3 + 2] * a[2];
 }
 
-// K5: y = W^T v per rank, D rows per block.
+// The same sum as rank_wtv, by the 32 lanes of one warp: lane l takes the
+// rows begin + l, begin + l + 32, ... in order; the lanes' sums are added
+// with a fixed shuffle tree and lane 0 holds the result.  Every lane of the
+// warp must call it.
+template <typename WT, int D>
+__device__ __forceinline__ void rank_wtv_warp(const WT* __restrict__ wT,
+                                              const int* __restrict__ ids,
+                                              const float* __restrict__ vtab, int n, int O,
+                                              int begin, int end, float (&a)[3]) {
+  a[0] = a[1] = a[2] = 0.f;
+  for (int o = begin + (int)(threadIdx.x & 31); o < end; o += 32) {
+    const int c = __ldg(ids + o);
+    if (c < 0 || c >= n) continue;
+    const float* v = vtab + (size_t)c * D;
+    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float vd = __ldg(v + d);
+      t0 += load_w(wT, (size_t)(d * 3 + 0) * O + o) * vd;
+      t1 += load_w(wT, (size_t)(d * 3 + 1) * O + o) * vd;
+      t2 += load_w(wT, (size_t)(d * 3 + 2) * O + o) * vd;
+    }
+    a[0] += t0;
+    a[1] += t1;
+    a[2] += t2;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a[0] += __shfl_down_sync(0xffffffffu, a[0], off);
+    a[1] += __shfl_down_sync(0xffffffffu, a[1], off);
+    a[2] += __shfl_down_sync(0xffffffffu, a[2], off);
+  }
+}
+
+// K5: y = W^T v per rank, D rows per block; one warp per rank.
 template <typename WT, int D>
 __global__ void __launch_bounds__(kThreads)
 schur_fwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ids,
                  const float* __restrict__ vtab, int n, const int* __restrict__ rank_start, int P,
                  int O, float* __restrict__ y) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= P) return;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= P) return;  // uniform across the warp
   float a[3];
-  rank_wtv<WT, D>(wT, ids, vtab, n, O, rank_start[r], rank_start[r + 1], a);
-  y[(size_t)r * 3] = a[0];
-  y[(size_t)r * 3 + 1] = a[1];
-  y[(size_t)r * 3 + 2] = a[2];
+  rank_wtv_warp<WT, D>(wT, ids, vtab, n, O, rank_start[r], rank_start[r + 1], a);
+  if ((threadIdx.x & 31) == 0) {
+    y[(size_t)r * 3] = a[0];
+    y[(size_t)r * 3 + 1] = a[1];
+    y[(size_t)r * 3 + 2] = a[2];
+  }
 }
 
 // Thread-local sum of W_o z[rank_o] over the permuted rows [begin, end)
@@ -189,7 +232,7 @@ int launch_bwd_d(const void* wT, const int* ranks, const float* ztab, int Pz,
 template <typename WT, int D>
 int launch_fwd_d(const void* wT, const int* ids, const float* vtab, int n, const int* rank_start,
                  int P, int O, float* y, cudaStream_t stream) {
-  schur_fwd_kernel<WT, D><<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  schur_fwd_kernel<WT, D><<<(P + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       static_cast<const WT*>(wT), ids, vtab, n, rank_start, P, O, y);
   return (int)cudaGetLastError();
 }

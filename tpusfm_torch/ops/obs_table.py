@@ -707,9 +707,27 @@ def _check_vals(name: str, valsT: torch.Tensor, o: int):
         raise ValueError(f"{name}: valsT must be (k, {o}) with k >= 1, got {tuple(valsT.shape)}")
 
 
+def segsum_lane_major(valsT: torch.Tensor) -> bool:
+    """How K6 reads a (k, O) table: False for row-major storage, the (k, O)
+    view with strides (1, k) of an (O, k) table (`x.T` of a contiguous x),
+    which it reads in place; True for a contiguous lane-major table, which
+    it first transposes into a row-major scratch.  Other strides raise."""
+    k, o = valsT.shape
+    if (k == 1 or valsT.stride(0) == 1) and (o == 1 or valsT.stride(1) == k):
+        return False
+    if valsT.is_contiguous():
+        return True
+    raise ValueError(f"segsum_table_t: valsT must be a contiguous (k, O) table or the (k, O) "
+                     f"view of a contiguous (O, k) one, got strides {valsT.stride()}")
+
+
 def segsum_table_t(valsT, idx, n: int, *, layout: ObsLayout | None = None):
     """K6: valsT (k, O), idx (O,) in any order -> (n, k) float32 sums by
-    id; ids outside [0, n) are dropped.  `layout` holds idx's segments."""
+    id; ids outside [0, n) are dropped.  `layout` holds idx's segments.
+    On the card valsT is either row-major, the (k, O) view `x.T` of a
+    contiguous (O, k) table x, read without a copy, or a contiguous
+    lane-major (k, O) table (segsum_lane_major); the two give the same
+    bits."""
     if not _dispatch("segsum_table_t", valsT, idx):
         return segsum_table_t_reference(valsT, idx, n)
     O = idx.shape[0]
@@ -717,17 +735,21 @@ def segsum_table_t(valsT, idx, n: int, *, layout: ObsLayout | None = None):
     if min(n, O) < 1:
         raise ValueError("segsum_table_t needs at least one segment and one observation")
     k = valsT.shape[0]
+    vals = valsT.to(torch.float32)  # keeps the strides of a dense table
+    lane_major = segsum_lane_major(vals)
     lay = _layout_for(layout, idx, n, None, None, need_ranks=False)
-    vals = _f32(valsT)
-    out = torch.empty((n, k), dtype=torch.float32, device=vals.device)
-    part = torch.empty((lay.chunk_bound, k), dtype=torch.float32, device=vals.device)
+    dev = vals.device
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    part = torch.empty((lay.chunk_bound, k), dtype=torch.float32, device=dev)
+    scratch = torch.empty((O, k), dtype=torch.float32, device=dev) if lane_major else None
     lib = cuda_build.kernels()
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpusfm_ba_segsum_table(
-            vals.data_ptr(), k, O, lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(),
-            lay.chunk_start.data_ptr(), n, lay.chunk_bound, CHUNK_ROWS, part.data_ptr(),
-            out.data_ptr(), stream)
+            vals.data_ptr(), int(lane_major), k, O, lay.seg_perm.data_ptr(),
+            lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), n, lay.chunk_bound, CHUNK_ROWS,
+            None if scratch is None else scratch.data_ptr(), part.data_ptr(), out.data_ptr(),
+            stream)
     cuda_build.check(lib, err, "segsum_table_t launch")
     LAUNCHES["segsum_table_t"] += 1
     return out

@@ -4,10 +4,11 @@
 
 Renders the medium rung's orbit sequence (bench.py:352-421, cut to
 ``--views``), runs features, matching, filtering and track building on each
-device named, and prints one JSON line per device with the counts of every
-stage (features, putative and geometric matches, pairs kept, tracks and the
-track-length histogram).  Counts that differ between devices on the same
-inputs locate where their numerics part.
+device named (the card alone unless ``--devices`` names others, e.g.
+``--devices cpu``), and prints one JSON line per device with the counts of
+every stage (features, putative and geometric matches, pairs kept, tracks
+and the track-length histogram).  Counts that differ between devices on
+the same inputs locate where their numerics part.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def front_end_counts(images, intr, cfg, *, device, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--views", type=int, default=200)
-    ap.add_argument("--devices", nargs="+", default=["cpu"])
+    ap.add_argument("--devices", nargs="+", default=["cuda"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     images, gt, cfg = rung_inputs(args.views)
