@@ -72,10 +72,12 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    index_select; K6 at the gather run's shapes (k = 42 and 36).
 
 The second-to-last stdout line is a JSON object with one entry per kernel
-K1-K9 and K2's unreduced mode: route, source, the TPU kernel it replaces,
-launches in its main-path run (the 20-view run for K1, the held 200-view
-run for K2-K4, path A for K5, path B for K6 and K7, the gather run for K8
-and K9, the composition of phase 9 for K2 unreduced), max abs error
+K1-K9 and K2's unreduced mode, and a second K3 entry at the 500-camera
+shape: route, source, the TPU kernel it replaces, launches in its
+main-path run (the 20-view run for K1, the held 200-view run for K2-K4,
+the 500-camera kernel-path solve of phase 10 for K3's second entry, path A
+for K5, path B for K6 and K7, the gather run for K8 and K9, the
+composition of phase 9 for K2 unreduced), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
 device time from torch.profiler, the least time the card could take (bytes
 at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is larger) and
@@ -104,6 +106,9 @@ NEW_KERNELS = ("schur_fwd_t", "segsum_table_t", "segsum_sorted_t")
 # The gathers (K8, K9) and K2's unreduced mode.
 GATHERS = ("gather_table", "gather_sorted")
 UNREDUCED = "linearize_radial3_t"
+# K3's second entry on the kernels line: the 500-camera BA shape, its
+# launches those of the 500-camera kernel-path solve.
+K3_BENCH = "schur_mv_t (500-camera BA)"
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and
 # float32 outside the tensor cores, which every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -735,7 +740,8 @@ def phase_ba_kernels(card, captured: dict, entries: dict) -> dict:
     for name, res in res_a.items():
         entries[name].update(res)
     bench = _bench_problem(dev)
-    _check_ba_kernels("(b) 500-camera bench problem", *_bench_kernel_args(bench), card)
+    res_b = _check_ba_kernels("(b) 500-camera bench problem", *_bench_kernel_args(bench), card)
+    entries[K3_BENCH].update(res_b["schur_mv_t"])
     return bench
 
 
@@ -765,7 +771,7 @@ def _timed_solve(bench: dict, cfg, label: str, card: str, **kw):
     return out, launches
 
 
-def phase_ba_solve(bench: dict, card: str) -> None:
+def phase_ba_solve(bench: dict, card: str, entries: dict) -> None:
     from tpusfm_torch.ba import bundle_adjust as tba
 
     cfg = tba.BAConfig(max_iters=20, cg_iters=30, assume_sorted=True)
@@ -777,6 +783,8 @@ def phase_ba_solve(bench: dict, card: str) -> None:
                     ("kernels, schur_diag", dataclasses.replace(cfg, precond="schur_diag"))):
         out, launches = _timed_solve(bench, c, name, card)
         costs[name] = float(out[4]["final_cost"])
+        if name == "kernels":
+            entries[K3_BENCH]["launches"] = launches["schur_mv_t"]
         need = BA_KERNELS + (("segsum_table_t",) if "schur_diag" in name else ())
         if name.startswith("kernels") and any(launches[n] == 0 for n in need):
             raise AssertionError(f"the {name} solve did not launch every kernel: {launches}")
@@ -1048,7 +1056,8 @@ def main() -> int:
             "segsum_sorted_t": ("ba_segsum.cu", 1724),
             "gather_table": ("ba_gather.cu", 95),
             "gather_sorted": ("ba_gather.cu", 173),
-            UNREDUCED: ("ba_linearize.cu", 1262)}.items():
+            UNREDUCED: ("ba_linearize.cu", 1262),
+            K3_BENCH: ("ba_schur.cu", 2023)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1060,7 +1069,7 @@ def main() -> int:
     cap_g = phase_gathers200(entries)
     bench = phase_ba_kernels(card, captured, entries)
     phase_unreduced(card, captured, cap_a, bench, entries)
-    phase_ba_solve(bench, card)
+    phase_ba_solve(bench, card, entries)
     del bench
     cap_b = phase_brown(card, entries)
     phase_new_kernels(card, cap_a, cap_b, entries)

@@ -371,6 +371,109 @@ def test_k8_k9_bit_equal_to_twins_and_repeat(dev, k2_inputs):
         assert bool(out.any()) and not bool(got[out].any())
 
 
+@pytest.mark.parametrize("d", list(range(1, 10)) + [13])
+def test_k8_k9_warp_tiles_bit_equal_at_every_width(dev, d):
+    """K8's and K9's warp tiles at D = 1 to 9 (compile-time 3, 6, 7, 9, the
+    rest and 13 through the run-time path) and row counts around a 32-row
+    tile, O = 1 among them: K8 on a 4096-row table with ids below 0 and
+    past N in the same call, K9 on a 50,000-rank table by sorted ranks with
+    a gap of 5,000 and a tail at 2^30; bit-equal to the twin, zero rows
+    outside the table, repeats identical, one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(100 + d)
+    table = torch.randn((4096, d), generator=gen, device=dev)
+    for o in (1, 5, 31, 32, 33, 1000, 32 * 257 + 5):
+        idx = torch.randint(-3, 4096 + 3, (o,), generator=gen, device=dev, dtype=torch.int32)
+        idx[:2] = torch.tensor([-1, 4096], dtype=torch.int32, device=dev)[: min(o, 2)]
+        before = ot.LAUNCHES["gather_table"]
+        got = ot.gather_table(table, idx)
+        assert torch.equal(got, ot.gather_table(table, idx)), (d, o)
+        torch.cuda.synchronize()
+        assert ot.LAUNCHES["gather_table"] == before + 2
+        assert torch.equal(got, ot.gather_table_reference(table, idx)), (d, o)
+        assert not bool(got[(idx < 0) | (idx >= 4096)].any())
+    P = 50000
+    pts = torch.randn((P, d), generator=gen, device=dev)
+    rng = np.random.default_rng(d)
+    live = np.sort(rng.integers(0, P - 5000, 200003))
+    ranks = np.concatenate([live + np.where(live >= 20000, 5000, 0), np.full(77, 2 ** 30)])
+    ranks = torch.as_tensor(ranks.astype(np.int32), device=dev)
+    got = ot.gather_sorted(pts, ranks)
+    assert torch.equal(got, ot.gather_sorted(pts, ranks))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ot.gather_sorted_reference(pts, ranks))
+    assert not bool(got[-77:].any()) and bool(got[-78].any())
+
+
+def test_k8_takes_64_bit_offsets_past_2_31_elements(dev):
+    """An output of 3 x 716,000,005 floats (past 2^31 elements, a ragged
+    last tile) takes the 64-bit offset path: its first and last 100,000
+    rows equal the twin on the same ids (about 11.5 GB on the card)."""
+    O, d = 716_000_005, 3
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table = torch.randn((4096, d), generator=gen, device=dev)
+    idx = torch.randint(-2, 4096 + 2, (O,), generator=gen, device=dev, dtype=torch.int32)
+    got = ot.gather_table(table, idx)
+    torch.cuda.synchronize()
+    for sl in (slice(0, 100_000), slice(O - 100_000, O)):
+        assert torch.equal(got[sl], ot.gather_table_reference(table, idx[sl]))
+    del got, idx
+    torch.cuda.empty_cache()
+
+
+def _k3_padded_table(C, seed):
+    """A rank-sorted table of C cameras shaped like the engine's: 3,000
+    ranks with gaps, 1 to 40 rows each, 30% of the rows on camera 0 and a
+    few on camera ids outside [0, C); 40 rows at rank -1 at its head and
+    2,500 padding rows on camera 0 at rank 2^30 at its tail, so camera 0
+    holds more than 3 x CHUNK_ROWS rows, some of them outside every rank."""
+    rng = np.random.default_rng(seed)
+    live = np.sort(rng.choice(6000, 3000, replace=False))
+    ranks = np.repeat(live, rng.integers(1, 41, 3000))
+    cam = rng.integers(0, C, ranks.shape[0])
+    cam[rng.random(ranks.shape[0]) < 0.3] = 0
+    cam[rng.random(ranks.shape[0]) < 0.01] = -1
+    cam[rng.random(ranks.shape[0]) < 0.01] = C + 2
+    ranks = np.concatenate([np.full(40, -1), ranks, np.full(2500, 2 ** 30)])
+    cam = np.concatenate([rng.integers(0, C, 40), cam, np.zeros(2500, np.int64)])
+    assert (cam == 0).sum() > 3 * ot.CHUNK_ROWS
+    return cam.astype(np.int32), ranks.astype(np.int32), int(live[-1]) + 1
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_hcc", [False, True])
+@pytest.mark.parametrize("C", [300, 700])
+def test_k3_padded_table_matches_float64_twin_and_repeats(dev, C, with_hcc, w_dtype):
+    """K3 on an engine-shaped table (_k3_padded_table) of more than 256
+    cameras: out and y within 4x the float32 twin's error against the
+    float64 twin, repeats bit-identical, one launch a call.  With 300
+    cameras the camera pass gets fewer chunks than an H100 has SMs, with
+    700 more."""
+    cam, ranks, P = _k3_padded_table(C, seed=C)
+    cam, ranks = torch.as_tensor(cam, device=dev), torch.as_tensor(ranks, device=dev)
+    O = cam.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(C + with_hcc)
+    W = torch.randn((18, O), generator=gen, device=dev).to(w_dtype)
+    v = torch.randn((C, 6), generator=gen, device=dev)
+    hinv = 0.1 * torch.randn((P, 3, 3), generator=gen, device=dev)
+    hcc = torch.randn((C, 6, 6), generator=gen, device=dev) if with_hcc else None
+    layout = ot.obs_layout(cam, C, ranks, P)
+    # Leave NaN in the block the wrapper's scratch will most likely reuse, so
+    # a scratch row that the kernel fails to write shows in the sums.
+    poison = torch.full(((O + layout.chunk_bound) * 6,), float("nan"), device=dev)
+    del poison
+    before = ot.LAUNCHES["schur_mv_t"]
+    got = ot.schur_mv_t(W, cam, ranks, v, hinv, P, hcc_d=hcc, layout=layout)
+    again = ot.schur_mv_t(W, cam, ranks, v, hinv, P, hcc_d=hcc, layout=layout)
+    torch.cuda.synchronize()
+    assert ot.LAUNCHES["schur_mv_t"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    f32 = ot.schur_mv_t_reference(W, cam, ranks, v, hinv, P, hcc_d=hcc)
+    f64 = ot.schur_mv_t_reference(W, cam, ranks, v.double(), hinv.double(), P,
+                                  hcc_d=None if hcc is None else hcc.double())
+    _oracle_close(got[0], f32[0], f64[0], "S v" if with_hcc else "bc")
+    _oracle_close(got[1], f32[1], f64[1], "y")
+
+
 def _unreduced_args(k2_inputs, refine):
     args = list(k2_inputs)
     if refine:  # one group holds every row

@@ -23,11 +23,12 @@ def _table(n, d, seed):
     return np.random.default_rng(seed).normal(scale=100.0, size=(n, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [6, 7, 9])
+@pytest.mark.parametrize("d", [3, 6, 7, 9])
 def test_gather_table_twin_matches_reference(d):
     """Ids in range and in any order, past the table, in the pad to a
     multiple of 8 (the reference pads the table with zero rows), far past
-    it, and negative: every one outside [0, N) gives a zero row."""
+    it, and negative: every one outside [0, N) gives a zero row.  308 ids:
+    the last of the kernel's 32-row tiles is ragged."""
     n = 13  # padded to 16 by the reference
     tab = _table(n, d, seed=d)
     rng = np.random.default_rng(100 + d)
@@ -51,10 +52,11 @@ def _dense_ranks(n_rows, p, seed, n_invalid):
     return np.concatenate([ranks, np.full(n_invalid, tot.INVALID_RANK)]).astype(np.int32)
 
 
-@pytest.mark.parametrize("d", [3, 9])
+@pytest.mark.parametrize("d", [3, 6, 7, 9])
 def test_gather_sorted_twin_matches_reference_at_dense_ranks(d):
     """700 ranks (several of the reference's 256-rank windows) over 2,000
-    rows, and 40 invalid rows at rank 2^30, which give zero rows."""
+    rows, and 40 invalid rows at rank 2^30, which give zero rows (2,040
+    rows: a ragged last tile of 24)."""
     p = 700
     tab = _table(p, d, seed=20 + d)
     ranks = _dense_ranks(2000, p, seed=d, n_invalid=40)

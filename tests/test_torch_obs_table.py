@@ -168,9 +168,29 @@ def _schur_inputs(tables, d=6, seed=0):
                 ztab=r.normal(size=(P, 3)).astype(np.float32))
 
 
-@pytest.mark.parametrize("with_hcc", [False, True])
-@pytest.mark.parametrize("w_bf16", [False, True])
-def test_schur_mv_twin_matches_reference(tables, with_hcc, w_bf16):
+def _engine_padded(tables, n_pad=tot.CHUNK_ROWS + 100):
+    """The tables with n_pad rows appended on camera 0 at rank 2^30, as the
+    engine pads its observation table: camera 0's segment then spans more
+    than one CHUNK_ROWS chunk, and its rows past the first chunk sit in the
+    invalid-rank tail.  Their weight is 1, so W is not zero there."""
+    t = dict(tables)
+    t["obs_cam"] = np.concatenate([tables["obs_cam"], np.zeros(n_pad, np.int32)])
+    t["ranks"] = np.concatenate([tables["ranks"], np.full(n_pad, 2 ** 30, np.int32)])
+    t["obs_w"] = np.concatenate([tables["obs_w"], np.ones(n_pad, np.float32)])
+    assert (t["obs_cam"] == 0).sum() > tot.CHUNK_ROWS
+    return t
+
+
+# The orbit table's cases keep their ids; the engine-padded ones add a suffix.
+_SCHUR_MV_CASES = [pytest.param(w_bf16, with_hcc, table, id=f"{w_bf16}-{with_hcc}{suffix}")
+                   for table, suffix in (("orbit", ""), ("engine_padded", "-engine_padded"))
+                   for w_bf16 in (False, True) for with_hcc in (False, True)]
+
+
+@pytest.mark.parametrize("w_bf16,with_hcc,table", _SCHUR_MV_CASES)
+def test_schur_mv_twin_matches_reference(tables, with_hcc, w_bf16, table):
+    if table == "engine_padded":
+        tables = _engine_padded(tables)
     s = _schur_inputs(tables)
     wT = torch.as_tensor(s["wT"])
     if w_bf16:

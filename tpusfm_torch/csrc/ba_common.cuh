@@ -22,6 +22,28 @@ namespace tpusfm_ba {
 constexpr int kThreads = 256;  // every BA kernel runs 256-thread blocks
 constexpr int kWarps = kThreads / 32;
 
+// Makes `device` the calling thread's current device for the life of the
+// scope and restores the previous one after it.  The K3, K8 and K9
+// launchers take it in place of a Python device guard around the call: most
+// calls find `device` current already, which costs one cudaGetDevice.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceScope(int device) {
+    int cur = 0;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) {
+      err = cudaSetDevice(device);
+      if (err == cudaSuccess) prev = cur;
+    }
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+};
+
 __device__ __forceinline__ float load_w(const float* w, size_t i) { return w[i]; }
 __device__ __forceinline__ float load_w(const __nv_bfloat16* w, size_t i) {
   return __bfloat162float(w[i]);

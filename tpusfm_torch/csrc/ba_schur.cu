@@ -18,27 +18,38 @@
 // What bounds them: 6D FLOPs per observation and direction against 6D bytes
 // of bf16 W plus ids and a 12-byte point row per observation: well under one
 // FLOP per byte, so memory-bound.  The rows of a rank are contiguous in the
-// rank-sorted table, so K5 gives each rank one warp whose lanes take the
-// rank's rows l, l + 32, ...: the loads of each W row and of the ids are
-// coalesced, and a 2,048-rank table fills 256 blocks instead of the 8 that
-// a thread per rank gives.  A track shorter than 32 rows leaves lanes idle
-// (about half at the 200-view rung's ~16).  K3's rank pass still gives each
-// rank one thread (rank_wtv).  The segment passes (K3's camera pass, K4)
-// read W through a permutation, so each row costs up to 3D separate 32-byte
-// sectors and not 6D bytes.  The TPU kernels' one-hot contractions, 128-lane
-// rank windows and bf16 three-way splits do not carry over: tables are
-// indexed directly, so ranks need not be dense, and rows with rank >= P
-// contribute nothing and are never read.
+// rank-sorted table, so K5 and K3's rank pass give each rank one warp whose
+// lanes take the rank's rows l, l + 32, ...: the loads of each W row and of
+// the ids are coalesced, and a 2,048-rank table fills 256 blocks instead of
+// the 8 that a thread per rank gives.  A track shorter than 32 rows leaves
+// lanes idle (about half at the 200-view rung's ~16).
 //
-// Determinism: no atomics.  K3's rank pass gives each rank one thread that
-// walks its rows [rank_start[r], rank_start[r+1]) in order; K5's lanes each
-// sum their rows in order and the warp adds the 32 partial sums with a fixed
-// shuffle tree.  K3's camera pass gives each camera one block whose thread
-// t takes the camera's rows t, t + 256, ... of a stable permutation, then
-// sums the threads with a fixed shuffle tree.  K4 sums a segment the same
-// way per fixed chunk of its rows and adds the chunks in order
-// (ba_common.cuh): an intrinsic group may hold every row of the table.  Two
-// calls on the same inputs give the same bits.
+// The camera side is where W's lane-major layout costs: a camera's rows are
+// scattered over the table, and reading W through the camera permutation
+// costs up to 3D separate 32-byte sectors a row instead of 6D bytes.  K4
+// still does that (segment_wz).  K3 does not: its rank pass, which reads
+// each rank's W rows side by side anyway, goes on to write wz_o = W_o z_r
+// for the rank's rows into a row-major (O, 6) float32 scratch (each lane
+// keeps its first row's W block in registers meanwhile, so a rank of at
+// most 32 rows reads W once), and its camera pass reads one permutation
+// entry and 24 contiguous bytes a row, and no W, rank or z at all.  At the
+// 500-camera shape the scratch is 36 MB, which the card's 50 MB L2 can
+// hold from one pass to the next.  Rows
+// outside every rank (rank >= P or < 0, sorted to the ends of the table)
+// get zero rows there: the engine pads its table with such rows on camera
+// 0, and the camera pass adds them.  The TPU kernels' one-hot
+// contractions, 128-lane rank windows and bf16 three-way splits do not
+// carry over: tables are indexed directly, so ranks need not be dense, and
+// rows with rank >= P contribute nothing.
+//
+// Determinism: no atomics.  The rank passes' lanes each sum their rows in
+// order and the warp adds the 32 partial sums with a fixed shuffle tree.
+// The camera sums (K3's camera pass, K4) are two-level over fixed chunks of
+// a segment's rows (ba_common.cuh): an intrinsic group, or camera 0 with the
+// engine's padding, may hold most of the table.  A chunk's block gives
+// thread t its rows t, t + 256, ... in order, then sums the threads with a
+// fixed shuffle tree, and a second pass adds each segment's chunks in
+// order.  Two calls on the same inputs give the same bits.
 
 #include "ba_common.cuh"
 
@@ -47,62 +58,20 @@ namespace {
 using namespace tpusfm_ba;
 
 constexpr int kMaxD = 9;
+// K3's camera pass reads kWzRowsInFlight scratch rows of W z at once.
+constexpr int kWzRowsInFlight = 4;
 
 // sum over the rows of rank r of W_o^T v[id_o], all D rows of W_o; rows
-// whose id is outside [0, n) add nothing.
+// whose id is outside [0, n) add nothing.  The 32 lanes of one warp share
+// the work: lane l takes the rows begin + l, begin + l + 32, ... in order;
+// the lanes' sums are added with a fixed shuffle tree and lane 0 holds the
+// result.  Every lane of the warp must call it.
 //
 // The reference's `_schur_fwd_t_kernel` (tpusfm/ops/obs_table.py:1811-1815)
 // sums only d < 6 whatever D is, so on the TPU the intrinsic-group half of
 // the self-calibrating matvec (D = 7 or 9) drops the lanes past the sixth
 // and is not the transpose of its K4 half.  This port departs from it on
 // purpose: every lane counts, as the wrapper's contract states.
-template <typename WT, int D>
-__device__ __forceinline__ void rank_wtv(const WT* __restrict__ wT, const int* __restrict__ ids,
-                                         const float* __restrict__ vtab, int n, int O, int begin,
-                                         int end, float (&a)[3]) {
-  a[0] = a[1] = a[2] = 0.f;
-  for (int o = begin; o < end; ++o) {
-    const int c = ids[o];
-    if (c < 0 || c >= n) continue;
-    const float* v = vtab + (size_t)c * D;
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float vd = v[d];
-      t0 += load_w(wT, (size_t)(d * 3 + 0) * O + o) * vd;
-      t1 += load_w(wT, (size_t)(d * 3 + 1) * O + o) * vd;
-      t2 += load_w(wT, (size_t)(d * 3 + 2) * O + o) * vd;
-    }
-    a[0] += t0;
-    a[1] += t1;
-    a[2] += t2;
-  }
-}
-
-// K3 pass 1: y = W^T v per rank and z = Hpp^-1 y.
-template <typename WT>
-__global__ void __launch_bounds__(kThreads)
-schur_rank_kernel(const WT* __restrict__ wT, const int* __restrict__ obs_cam,
-                  const float* __restrict__ vtab, const float* __restrict__ hinv,
-                  const int* __restrict__ rank_start, int C, int P, int O, float* __restrict__ y,
-                  float* __restrict__ z) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= P) return;
-  float a[3];
-  rank_wtv<WT, 6>(wT, obs_cam, vtab, C, O, rank_start[r], rank_start[r + 1], a);
-  y[(size_t)r * 3] = a[0];
-  y[(size_t)r * 3 + 1] = a[1];
-  y[(size_t)r * 3 + 2] = a[2];
-  const float* h = hinv + (size_t)r * 9;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    z[(size_t)r * 3 + i] = h[i * 3] * a[0] + h[i * 3 + 1] * a[1] + h[i * 3 + 2] * a[2];
-}
-
-// The same sum as rank_wtv, by the 32 lanes of one warp: lane l takes the
-// rows begin + l, begin + l + 32, ... in order; the lanes' sums are added
-// with a fixed shuffle tree and lane 0 holds the result.  Every lane of the
-// warp must call it.
 template <typename WT, int D>
 __device__ __forceinline__ void rank_wtv_warp(const WT* __restrict__ wT,
                                               const int* __restrict__ ids,
@@ -173,31 +142,167 @@ __device__ __forceinline__ void segment_wz(const WT* __restrict__ wT, const int*
   }
 }
 
-// K3 pass 2: one block per camera, out_c = [Hcc_d,c v_c -] sum W_o z[rank_o].
-template <typename WT, bool kCombine>
-__global__ void __launch_bounds__(kThreads)
-schur_camera_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
-                    const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
-                    const int* __restrict__ seg_start, int O, const float* __restrict__ hcc,
-                    const float* __restrict__ vtab, float* __restrict__ out) {
-  constexpr int D = 6;
-  __shared__ float sums[D];
-  const int n = blockIdx.x;
-  float acc[D];
-  segment_wz<WT, D>(wT, ranks, ztab, Pz, seg_perm, O, seg_start[n], seg_start[n + 1], acc);
-  block_sum<D>(acc, sums);
-  if (threadIdx.x < D) {
-    float s = sums[threadIdx.x];
-    if (kCombine) {
-      const float* h = hcc + (size_t)n * D * D + threadIdx.x * D;
-      const float* v = vtab + (size_t)n * D;
-      float hv = 0.f;
+// One observation's (6, 3) W block, from column o of the (18, O) table.
+template <typename WT>
+__device__ __forceinline__ void load_w6x3(const WT* __restrict__ wT, int O, int o,
+                                          float (&w)[18]) {
 #pragma unroll
-      for (int e = 0; e < D; ++e) hv += h[e] * v[e];
-      s = hv - s;
-    }
-    out[(size_t)n * D + threadIdx.x] = s;
+  for (int k = 0; k < 18; ++k) w[k] = load_w(wT, (size_t)k * O + o);
+}
+
+// a += W^T v[c] for one row (rank_wtv_warp's arithmetic); nothing for a
+// camera id outside [0, C).
+__device__ __forceinline__ void add_wtv(const float (&w)[18], int c,
+                                        const float* __restrict__ vtab, int C, float (&a)[3]) {
+  if (c < 0 || c >= C) return;
+  const float* v = vtab + (size_t)c * 6;
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+  for (int d = 0; d < 6; ++d) {
+    const float vd = __ldg(v + d);
+    t0 += w[d * 3] * vd;
+    t1 += w[d * 3 + 1] * vd;
+    t2 += w[d * 3 + 2] * vd;
   }
+  a[0] += t0;
+  a[1] += t1;
+  a[2] += t2;
+}
+
+// Row o of the (O, 6) scratch wz: W_o z (segment_wz's arithmetic per row).
+__device__ __forceinline__ void store_wz(const float (&w)[18], const float (&z)[3],
+                                         float* __restrict__ wz, int o) {
+  float v[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) v[d] = w[d * 3] * z[0] + w[d * 3 + 1] * z[1] + w[d * 3 + 2] * z[2];
+  float2* row = reinterpret_cast<float2*>(wz + (size_t)o * 6);
+  row[0] = make_float2(v[0], v[1]);
+  row[1] = make_float2(v[2], v[3]);
+  row[2] = make_float2(v[4], v[5]);
+}
+
+// K3 pass 1: one warp per rank r writes y_r = sum W_o^T v[cam_o] and, for
+// each of the rank's rows, wz_o = W_o z_r with z_r = Hpp_r^-1 y_r, into the
+// row-major (O, 6) scratch wz.  Lane l takes the rank's rows l, l + 32, ...
+// in order and the warp adds the lanes with a fixed shuffle tree (as
+// rank_wtv_warp); each lane keeps its first row's W block in registers for
+// the wz write, so a rank of at most 32 rows reads W once, and only rows
+// past the 32nd are read again.  Before that, the grid's threads zero the
+// rows of wz outside every rank, [0, rank_start[0]) and [rank_start[P], O),
+// which the camera pass adds as they are.
+template <typename WT>
+__global__ void __launch_bounds__(kThreads)
+schur_rank_wz_kernel(const WT* __restrict__ wT, const int* __restrict__ obs_cam,
+                     const float* __restrict__ vtab, const float* __restrict__ hinv,
+                     const int* __restrict__ rank_start, int C, int P, int O,
+                     float* __restrict__ y, float* __restrict__ wz) {
+  const float2 zero = make_float2(0.f, 0.f);
+  const int head = rank_start[0], tail = rank_start[P];
+  for (int k = blockIdx.x * kThreads + threadIdx.x; k < head + O - tail;
+       k += gridDim.x * kThreads) {
+    float2* row = reinterpret_cast<float2*>(wz + (size_t)(k < head ? k : tail + k - head) * 6);
+    row[0] = zero;
+    row[1] = zero;
+    row[2] = zero;
+  }
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= P) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int first = rank_start[r] + lane, end = rank_start[r + 1];
+  float w[18], a[3] = {0.f, 0.f, 0.f};
+  if (first < end) {
+    load_w6x3(wT, O, first, w);
+    add_wtv(w, __ldg(obs_cam + first), vtab, C, a);
+  }
+  for (int o = first + 32; o < end; o += 32) {
+    float wo[18];
+    load_w6x3(wT, O, o, wo);
+    add_wtv(wo, __ldg(obs_cam + o), vtab, C, a);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a[0] += __shfl_down_sync(0xffffffffu, a[0], off);
+    a[1] += __shfl_down_sync(0xffffffffu, a[1], off);
+    a[2] += __shfl_down_sync(0xffffffffu, a[2], off);
+  }
+  if (lane == 0) {
+    y[(size_t)r * 3] = a[0];
+    y[(size_t)r * 3 + 1] = a[1];
+    y[(size_t)r * 3 + 2] = a[2];
+  }
+  const float* h = hinv + (size_t)r * 9;
+  float z[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)  // lane 0 holds the sum; its z goes to every lane
+    z[i] = __shfl_sync(0xffffffffu, h[i * 3] * a[0] + h[i * 3 + 1] * a[1] + h[i * 3 + 2] * a[2],
+                       0);
+  if (first < end) store_wz(w, z, wz, first);
+  for (int o = first + 32; o < end; o += 32) {
+    float wo[18];
+    load_w6x3(wT, O, o, wo);
+    store_wz(wo, z, wz, o);
+  }
+}
+
+// K3 pass 2: one block per chunk of a camera's rows writes the chunk's sum
+// of wz (6 values); thread t reads the permuted rows t, t + kThreads, ...,
+// kWzRowsInFlight at a time, each row's 24 bytes whole.
+__global__ void __launch_bounds__(kThreads)
+schur_wz_chunk_kernel(const float* __restrict__ wz, const int* __restrict__ seg_perm,
+                      const int* __restrict__ seg_start, const int* __restrict__ chunk_start,
+                      int C, int chunk_rows, float* __restrict__ part) {
+  __shared__ float sums[6];
+  ChunkRows ch;
+  if (!chunk_rows_of(seg_start, chunk_start, C, chunk_rows, blockIdx.x, ch)) return;
+  float acc[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) acc[d] = 0.f;
+  for (int i0 = ch.begin + threadIdx.x; i0 < ch.end; i0 += kThreads * kWzRowsInFlight) {
+    int o[kWzRowsInFlight];
+#pragma unroll
+    for (int u = 0; u < kWzRowsInFlight; ++u) {
+      const int i = i0 + u * kThreads;
+      o[u] = i < ch.end ? __ldg(seg_perm + i) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kWzRowsInFlight; ++u) {
+      if (o[u] < 0) continue;
+      const float2* row = reinterpret_cast<const float2*>(wz + (size_t)o[u] * 6);
+      const float2 w01 = __ldg(row), w23 = __ldg(row + 1), w45 = __ldg(row + 2);
+      acc[0] += w01.x;
+      acc[1] += w01.y;
+      acc[2] += w23.x;
+      acc[3] += w23.y;
+      acc[4] += w45.x;
+      acc[5] += w45.y;
+    }
+  }
+  block_sum<6>(acc, sums);
+  if (threadIdx.x < 6) part[(size_t)blockIdx.x * 6 + threadIdx.x] = sums[threadIdx.x];
+}
+
+// K3 pass 3: out_c = [Hcc_d,c v_c -] the sum of camera c's chunk partials
+// in chunk order (0 for a camera with no rows); one thread per value.
+template <bool kCombine>
+__global__ void __launch_bounds__(kThreads)
+schur_camera_finish_kernel(const float* __restrict__ part, const int* __restrict__ chunk_start,
+                           int C, const float* __restrict__ hcc, const float* __restrict__ vtab,
+                           float* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= C * 6) return;
+  const int c = i / 6, d = i - c * 6;
+  float s = 0.f;
+  const int end = chunk_start[c + 1];
+  for (int k = chunk_start[c]; k < end; ++k) s += part[(size_t)k * 6 + d];
+  if (kCombine) {
+    const float* h = hcc + (size_t)c * 36 + d * 6;
+    const float* v = vtab + (size_t)c * 6;
+    float hv = 0.f;
+#pragma unroll
+    for (int e = 0; e < 6; ++e) hv += h[e] * v[e];
+    s = hv - s;
+  }
+  out[i] = s;
 }
 
 // K4 pass 1: one block per chunk of a segment's rows writes the chunk's
@@ -273,41 +378,54 @@ int launch_fwd(int D, const void* wT, const int* ids, const float* vtab, int n,
 #undef TPUSFM_D_CASES
 
 template <typename WT>
-int launch_mv(const void* wT, const int* obs_cam, const int* ranks, const float* vtab,
-              const float* hinv, const float* hcc, const int* rank_start, const int* seg_perm,
-              const int* seg_start, int C, int P, int O, float* y, float* z, float* out,
-              cudaStream_t stream) {
-  const WT* w = static_cast<const WT*>(wT);
-  schur_rank_kernel<WT><<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      w, obs_cam, vtab, hinv, rank_start, C, P, O, y, z);
+int launch_mv(const void* wT, const int* obs_cam, const float* vtab, const float* hinv,
+              const float* hcc, const int* rank_start, const int* seg_perm, const int* seg_start,
+              const int* chunk_start, int C, int P, int O, int n_chunks, int chunk_rows, float* y,
+              float* wz, float* part, float* out, cudaStream_t stream) {
+  schur_rank_wz_kernel<WT><<<(P + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      static_cast<const WT*>(wT), obs_cam, vtab, hinv, rank_start, C, P, O, y, wz);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  schur_wz_chunk_kernel<<<n_chunks, kThreads, 0, stream>>>(wz, seg_perm, seg_start, chunk_start,
+                                                           C, chunk_rows, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (C * 6 + kThreads - 1) / kThreads;
   if (hcc)
-    schur_camera_kernel<WT, true><<<C, kThreads, 0, stream>>>(w, ranks, z, P, seg_perm, seg_start,
-                                                              O, hcc, vtab, out);
+    schur_camera_finish_kernel<true><<<blocks, kThreads, 0, stream>>>(part, chunk_start, C, hcc,
+                                                                       vtab, out);
   else
-    schur_camera_kernel<WT, false><<<C, kThreads, 0, stream>>>(w, ranks, z, P, seg_perm,
-                                                               seg_start, O, nullptr, nullptr, out);
+    schur_camera_finish_kernel<false><<<blocks, kThreads, 0, stream>>>(part, chunk_start, C,
+                                                                        nullptr, nullptr, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K3.  wT (18, O) bf16 (w_bf16 = 1) or f32; obs_cam, ranks (O) int32;
-// vtab (C, 6), hinv (P, 3, 3), hcc (C, 6, 6) or null, all f32 contiguous;
-// rank_start (P + 1), seg_perm (O), seg_start (C + 1) from ObsLayout.
-// Writes y (P, 3), the scratch z (P, 3) and out (C, 6).  Returns the CUDA
-// error code of the launches (0 = success).
-extern "C" int tpusfm_ba_schur_mv(const void* wT, int w_bf16, const int* obs_cam,
-                                  const int* ranks, const float* vtab, const float* hinv,
-                                  const float* hcc, const int* rank_start, const int* seg_perm,
-                                  const int* seg_start, int C, int P, int O, float* y, float* z,
-                                  float* out, cudaStream_t stream) {
-  if (C <= 0 || P <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
-  return w_bf16 ? launch_mv<__nv_bfloat16>(wT, obs_cam, ranks, vtab, hinv, hcc, rank_start,
-                                           seg_perm, seg_start, C, P, O, y, z, out, stream)
-                : launch_mv<float>(wT, obs_cam, ranks, vtab, hinv, hcc, rank_start, seg_perm,
-                                   seg_start, C, P, O, y, z, out, stream);
+// K3.  wT (18, O) bf16 (w_bf16 = 1) or f32; obs_cam (O) int32; vtab
+// (C, 6), hinv (P, 3, 3), hcc (C, 6, 6) or null, all f32 contiguous on
+// device `device`; rank_start (P + 1), seg_perm (O), seg_start and
+// chunk_start (C + 1) from ObsLayout, at most n_chunks chunks of chunk_rows
+// rows.  Writes y (P, 3), the scratch wz (O, 6) (8-byte aligned) and part
+// (n_chunks, 6), and out (C, 6).  Returns the CUDA error code of the
+// launches (0 = success).
+extern "C" int tpusfm_ba_schur_mv(int device, const void* wT, int w_bf16, const int* obs_cam,
+                                  const float* vtab, const float* hinv, const float* hcc,
+                                  const int* rank_start, const int* seg_perm,
+                                  const int* seg_start, const int* chunk_start, int C, int P,
+                                  int O, int n_chunks, int chunk_rows, float* y, float* wz,
+                                  float* part, float* out, cudaStream_t stream) {
+  if (C <= 0 || P <= 0 || O <= 0 || n_chunks <= 0 || chunk_rows <= 0 ||
+      (reinterpret_cast<uintptr_t>(wz) & 7) != 0)
+    return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return w_bf16 ? launch_mv<__nv_bfloat16>(wT, obs_cam, vtab, hinv, hcc, rank_start, seg_perm,
+                                           seg_start, chunk_start, C, P, O, n_chunks, chunk_rows,
+                                           y, wz, part, out, stream)
+                : launch_mv<float>(wT, obs_cam, vtab, hinv, hcc, rank_start, seg_perm, seg_start,
+                                   chunk_start, C, P, O, n_chunks, chunk_rows, y, wz, part, out,
+                                   stream);
 }
 
 // K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ranks (O) int32 into

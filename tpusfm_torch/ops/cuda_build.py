@@ -94,7 +94,7 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_linearize.argtypes = ([vp] * 15 + [ci] * 6 + [ctypes.c_float, ci]
                                             + [vp] * 7)
         lib.tpusfm_ba_linearize.restype = ci
-        lib.tpusfm_ba_schur_mv.argtypes = [vp, ci] + [vp] * 8 + [ci] * 3 + [vp] * 4
+        lib.tpusfm_ba_schur_mv.argtypes = [ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp] * 5
         lib.tpusfm_ba_schur_mv.restype = ci
         lib.tpusfm_ba_schur_bwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci,
                                             vp, vp, vp]
@@ -109,7 +109,7 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_linearize_unreduced.argtypes = ([vp] * 9 + [ci] * 4 + [ctypes.c_float, ci]
                                                       + [vp] * 6)
         lib.tpusfm_ba_linearize_unreduced.restype = ci
-        lib.tpusfm_ba_gather.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+        lib.tpusfm_ba_gather.argtypes = [ci, vp, ci, ci, vp, ci, vp, vp]
         lib.tpusfm_ba_gather.restype = ci
         lib.tpusfm_cuda_error_string.argtypes = [ci]
         lib.tpusfm_cuda_error_string.restype = ctypes.c_char_p

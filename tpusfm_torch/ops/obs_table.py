@@ -410,8 +410,9 @@ def gather_sorted_reference(table, idx_sorted):
 def _dispatch(name: str, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (launch), False for CPU tensors (twin)."""
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all tensors must be on one device")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one device")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
@@ -419,12 +420,25 @@ def _dispatch(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+# The conversions return their argument when it already has the kernel's
+# dtype and is contiguous, without a call into torch.
 def _i32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
     return t.to(torch.float32).contiguous()
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The cudaStream_t of `dev`'s current stream, for the launchers that
+    take their device and set it themselves (K3, K8, K9): no Stream object
+    and no Python device guard around the call."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _check_shape(name: str, t: torch.Tensor, shape: tuple):
@@ -601,7 +615,9 @@ def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
     obs_cam (O,), idx_sorted (O,) sorted ranks, vtab (C, 6), hinv_rank
     (p, 3, 3) damped point-block inverses by rank -> (bc (C, 6), y (p, 3))
     with bc = W Hpp^-1 W^T v per camera, or S v = hcc_d v - bc when hcc_d
-    (C, 6, 6) is given, and y = W^T v per rank."""
+    (C, 6, 6) is given, and y = W^T v per rank.  On the card the kernel
+    reads the rows through `layout` (rank ranges for p, camera segments and
+    chunks)."""
     if not _dispatch("schur_mv_t", wT, obs_cam, idx_sorted, vtab, hinv_rank,
                      *(() if hcc_d is None else (hcc_d,))):
         return schur_mv_t_reference(wT, obs_cam, idx_sorted, vtab, hinv_rank, p, hcc_d)
@@ -615,21 +631,22 @@ def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
     if min(C, O, p) < 1:
         raise ValueError("schur_mv_t needs at least one camera, observation and rank")
     lay = _layout_for(layout, obs_cam, C, idx_sorted, p, need_ranks=True)
-    cam, rk = _i32(obs_cam), _i32(idx_sorted)
-    v, hinv = _f32(vtab), _f32(hinv_rank)
-    hcc = _f32(hcc_d) if hcc_d is not None else None
+    cam, v, hinv = _i32(obs_cam), _f32(vtab), _f32(hinv_rank)
+    hcc = None if hcc_d is None else _f32(hcc_d)
     dev = v.device
+    n_chunks = lay.chunk_bound
     out = torch.empty((C, 6), dtype=torch.float32, device=dev)
     y = torch.empty((p, 3), dtype=torch.float32, device=dev)
-    z = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    # The kernel's scratch: W z per observation (O, 6), then the camera
+    # pass's chunk partials (n_chunks, 6).
+    scratch = torch.empty(((O + n_chunks) * 6,), dtype=torch.float32, device=dev)
+    wz = scratch.data_ptr()
     lib = cuda_build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpusfm_ba_schur_mv(
-            wT.data_ptr(), int(wT.dtype == torch.bfloat16), cam.data_ptr(), rk.data_ptr(),
-            v.data_ptr(), hinv.data_ptr(), None if hcc is None else hcc.data_ptr(),
-            lay.rank_start.data_ptr(), lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(),
-            C, p, O, y.data_ptr(), z.data_ptr(), out.data_ptr(), stream)
+    err = lib.tpusfm_ba_schur_mv(
+        dev.index, wT.data_ptr(), int(wT.dtype == torch.bfloat16), cam.data_ptr(), v.data_ptr(),
+        hinv.data_ptr(), None if hcc is None else hcc.data_ptr(), lay.rank_start.data_ptr(),
+        lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), C, p, O,
+        n_chunks, CHUNK_ROWS, y.data_ptr(), wz, wz + O * 6 * 4, out.data_ptr(), _raw_stream(dev))
     cuda_build.check(lib, err, "schur_mv_t launch")
     LAUNCHES["schur_mv_t"] += 1
     return out, y
@@ -787,13 +804,13 @@ def _launch_gather(name: str, table, idx) -> torch.Tensor:
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
     (n, d), o = table.shape, idx.shape[0]
     tab, ids = _f32(table), _i32(idx)
-    out = torch.empty((o, d), dtype=torch.float32, device=tab.device)
+    dev = tab.device
+    out = torch.empty((o, d), dtype=torch.float32, device=dev)
     if o * d == 0:
         return out
     lib = cuda_build.kernels()
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream(tab.device).cuda_stream
-        err = lib.tpusfm_ba_gather(tab.data_ptr(), n, d, ids.data_ptr(), o, out.data_ptr(), stream)
+    err = lib.tpusfm_ba_gather(dev.index, tab.data_ptr(), n, d, ids.data_ptr(), o, out.data_ptr(),
+                               _raw_stream(dev))
     cuda_build.check(lib, err, f"{name} launch")
     LAUNCHES[name] += 1
     return out
