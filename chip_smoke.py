@@ -63,7 +63,8 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    0.01 and t1, t2 within 0.003 of the lens; LM iterations per second;
    then the kernel path again with pallas_gathers=True (K8, K9), which
    must give the same intrinsics, poses, points and final cost bit for bit;
-12. K2 refine, K4 (D = 7, 9), K5 (D = 6, 7, 9), K6, K7 against their
+12. K2 refine, K4 (D = 6 and 7 at path A, 6 and 9 at path B; the camera
+   calls on W in camera order), K5 (D = 6, 7, 9), K6, K7 against their
    twins at the shapes paths A and B gave them, as phase 8; K6 at path B
    on the captured row-major table and on a lane-major copy, bit-equal,
    both timed;
@@ -72,14 +73,16 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    index_select; K6 at the gather run's shapes (k = 42 and 36).
 
 The second-to-last stdout line is a JSON object with one entry per kernel
-K1-K9 and K2's unreduced mode, and a second K3 entry at the 500-camera
-shape: route, source, the TPU kernel it replaces, launches in its
-main-path run (the 20-view run for K1, the held 200-view run for K2-K4,
-the 500-camera kernel-path solve of phase 10 for K3's second entry, path A
-for K5, path B for K6 and K7, the gather run for K8 and K9, the
-composition of phase 9 for K2 unreduced), max abs error
+K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
+shape and a second K4 entry at path B's cameras: route, source, the TPU
+kernel it replaces, launches in its main-path run (the 20-view run for K1,
+the held 200-view run for K2-K4, the 500-camera kernel-path solve of phase
+10 for the second K3 and K2 entries, path A for K5, path B for K6, K7 and
+the second K4 entry, the gather run for K8 and K9, the composition of
+phase 9 for K2 unreduced), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
-device time from torch.profiler, the least time the card could take (bytes
+device time from torch.profiler (with the kernels of a call printed), the
+least time the card could take (bytes
 at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is larger) and
 what bounds it, and the time of one PyTorch call computing the same
 function where there is one (index_add_ for K6, K7, index_select for K8,
@@ -106,9 +109,12 @@ NEW_KERNELS = ("schur_fwd_t", "segsum_table_t", "segsum_sorted_t")
 # The gathers (K8, K9) and K2's unreduced mode.
 GATHERS = ("gather_table", "gather_sorted")
 UNREDUCED = "linearize_radial3_t"
-# K3's second entry on the kernels line: the 500-camera BA shape, its
-# launches those of the 500-camera kernel-path solve.
+# Second entries on the kernels line: K3 and K2 (held) at the 500-camera BA
+# shape, their launches those of the 500-camera kernel-path solve; K4 on
+# path B's cameras (D = 6, 1.48M rows), its launches path B's.
 K3_BENCH = "schur_mv_t (500-camera BA)"
+K2_BENCH = "linearize_reduce_radial3_t (500-camera BA)"
+K4_PATH_B = "schur_bwd_t (path B, cameras)"
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and
 # float32 outside the tensor cores, which every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -175,7 +181,14 @@ def _device_ms(fn, runs: int = 10, attempts: int = 3) -> float | None:
     short = [(name[:60], n) for name, n, _ in rows if n != runs]
     if short:
         print(f"    profiler kept {short} kernel records of {runs} calls")
+    print(f"    {len(rows)} kernel(s) a call: {', '.join(_kernel_name(n) for n, _, _ in rows)}")
     return sum(us / n for _, n, us in rows) / 1e3
+
+
+def _kernel_name(name: str) -> str:
+    """A profiler kernel name without namespaces and parameters."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("::")[-1]
 
 
 def _dev(ms: float | None) -> str:
@@ -620,7 +633,11 @@ def _check_kernel(name: str, call, label: str, w_outputs=()) -> dict:
 
     a, kw = call
     fn, twin = getattr(ot, name), getattr(ot, name + "_reference")
-    tw = {k: v for k, v in kw.items() if k not in ("layout", "grp_layout")}
+    # The twins take neither layouts nor K4's segment-ordered W (the same
+    # values as wT), so the bound counts the same bytes whatever the read.
+    tw = {k: v for k, v in kw.items() if k not in ("layout", "grp_layout", "w_seg")}
+    if kw.get("seg_ordered_w"):  # K2's camera-ordered W follows its outputs
+        w_outputs = tuple(w_outputs) + (5 if kw.get("refine") else 3,)
     tw64 = {k: (v.double() if isinstance(v, torch.Tensor) else v) for k, v in tw.items()}
     if "w_dtype" in tw64:
         tw64["w_dtype"] = "f32"
@@ -684,8 +701,9 @@ def _bench_problem(dev):
 
 
 def _bench_kernel_args(args):
-    """K2-K4 arguments at the bench problem's shape: K2 at the perturbed
-    start; K3 and K4 on its W with a seeded v and z = Hpp^-1 gp."""
+    """K2-K4 arguments at the bench problem's shape, as the kernel path
+    calls them: K2 at the perturbed start, with W in camera order too; K3
+    and K4 (on that ordered W) with a seeded v and z = Hpp^-1 gp."""
     import torch
 
     from tpusfm_torch.ba import bundle_adjust as tba
@@ -700,15 +718,15 @@ def _bench_kernel_args(args):
     a2 = (tba.camera_table(ps), args["intr"], args["points"], cam, cam, ranks,
           args["obs_uv"].T.contiguous(), args["obs_mask"].to(torch.float32))
     kw2 = dict(refine=False, refine_mask=(0.0,) * 7, huber_delta=4.0, w_dtype="bf16",
-               layout=layout)
-    camred, ptred, W = ot.linearize_reduce_radial3_t(*a2, **kw2)
+               layout=layout, seg_ordered_w=True)
+    camred, ptred, W, W_seg = ot.linearize_reduce_radial3_t(*a2, **kw2)
     lam = torch.tensor(1e-4, device=dev)
     hcc_d = tba._damp_blocks(camred[:, list(ot._FULL66)].reshape(C, 6, 6), lam)
     hinv = tba._inv3(tba._damp_blocks(ptred[:, list(ot._FULL33)].reshape(P, 3, 3), lam))
     v = torch.randn((C, 6), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     z = torch.einsum("pij,pj->pi", hinv, ptred[:, 6:9])
     return ((a2, kw2), ((W, cam, ranks, v, hinv, P), dict(hcc_d=hcc_d, layout=layout)),
-            ((W, cam, ranks, z, C), dict(layout=layout)))
+            ((W, cam, ranks, z, C), dict(layout=layout, w_seg=W_seg)))
 
 
 def _check_k1_captured(captured: dict, card: str) -> None:
@@ -742,6 +760,7 @@ def phase_ba_kernels(card, captured: dict, entries: dict) -> dict:
     bench = _bench_problem(dev)
     res_b = _check_ba_kernels("(b) 500-camera bench problem", *_bench_kernel_args(bench), card)
     entries[K3_BENCH].update(res_b["schur_mv_t"])
+    entries[K2_BENCH].update(res_b["linearize_reduce_radial3_t"])
     return bench
 
 
@@ -785,6 +804,7 @@ def phase_ba_solve(bench: dict, card: str, entries: dict) -> None:
         costs[name] = float(out[4]["final_cost"])
         if name == "kernels":
             entries[K3_BENCH]["launches"] = launches["schur_mv_t"]
+            entries[K2_BENCH]["launches"] = launches["linearize_reduce_radial3_t"]
         need = BA_KERNELS + (("segsum_table_t",) if "schur_diag" in name else ())
         if name.startswith("kernels") and any(launches[n] == 0 for n in need):
             raise AssertionError(f"the {name} solve did not launch every kernel: {launches}")
@@ -810,6 +830,11 @@ def _packed_close(got, want, what):
     return err
 
 
+def _unreduced_kw(kw: dict) -> dict:
+    """K2's keyword arguments that its unreduced mode takes too."""
+    return {k: v for k, v in kw.items() if k not in ("layout", "grp_layout", "seg_ordered_w")}
+
+
 def _unreduced_then_reduce(a, kw):
     """The reference's CPU delegate of K2 (obs_table.py:1556-1580) through
     the port's ops entry points: K2's unreduced mode, then K6 per camera
@@ -819,8 +844,7 @@ def _unreduced_then_reduce(a, kw):
 
     refine = kw.get("refine", False)
     lay, glay = kw.get("layout"), kw.get("grp_layout")
-    outs = ot.linearize_radial3_t(*a, **{k: v for k, v in kw.items()
-                                         if k not in ("layout", "grp_layout")})
+    outs = ot.linearize_radial3_t(*a, **_unreduced_kw(kw))
     C, G, P = a[0].shape[0], a[1].shape[0], a[2].shape[0]
     cam = ot.segsum_table_t(outs[0], a[3], C, layout=lay)
     pt = ot.segsum_sorted_t(outs[1], a[5], P, layout=lay)
@@ -844,7 +868,7 @@ def _check_unreduced(call, label, card) -> dict:
     from tpusfm_torch.ops import obs_table as ot
 
     a, kw = call
-    ukw = {k: v for k, v in kw.items() if k not in ("layout", "grp_layout")}
+    ukw = _unreduced_kw(kw)
     print(f"K2 unreduced at {label}: C={a[0].shape[0]} G={a[1].shape[0]} P={a[2].shape[0]} "
           f"O={a[5].shape[0]} on {card}")
     res = _check_kernel(UNREDUCED, (a, ukw), label, w_outputs=(2, 4))
@@ -993,6 +1017,7 @@ def phase_brown(card: str, entries: dict) -> dict:
             else:
                 for n in NEW_KERNELS[1:]:
                     entries[n]["launches"] = launches[n]
+                entries[K4_PATH_B]["launches"] = calls["schur_bwd_t", "D=6"]
     first, gathered = (outs[n] for n in outs if n.startswith("kernels"))
     same = [torch.equal(x, y) for x, y in zip(first[:4], gathered[:4])]
     print(f"  pallas_gathers vs plain gathers: intrinsics, rotations, translations, points "
@@ -1014,8 +1039,12 @@ def phase_new_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> Non
     _check_kernel("linearize_reduce_radial3_t", cap_a["linearize_reduce_radial3_t", "refine"],
                   f"path A (C={a2[0].shape[0]} P={a2[2].shape[0]} O={a2[5].shape[0]}), refine",
                   w_outputs=(2, 4))
-    _check_kernel("schur_bwd_t", cap_a["schur_bwd_t", "D=7"], "path A, D=7")
-    _check_kernel("schur_bwd_t", cap_b["schur_bwd_t", "D=9"], "path B, D=9")
+    _check_kernel("schur_bwd_t", cap_a["schur_bwd_t", "D=6"],
+                  "path A, cameras, D=6 (camera-ordered W)")
+    _check_kernel("schur_bwd_t", cap_a["schur_bwd_t", "D=7"], "path A, one group, D=7")
+    entries[K4_PATH_B].update(_check_kernel("schur_bwd_t", cap_b["schur_bwd_t", "D=6"],
+                                            "path B, cameras, D=6 (camera-ordered W)"))
+    _check_kernel("schur_bwd_t", cap_b["schur_bwd_t", "D=9"], "path B, one group, D=9")
     _check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=6"], "path A, D=6")
     entries["schur_fwd_t"].update(_check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=7"],
                                                 "path A, D=7"))
@@ -1057,7 +1086,9 @@ def main() -> int:
             "gather_table": ("ba_gather.cu", 95),
             "gather_sorted": ("ba_gather.cu", 173),
             UNREDUCED: ("ba_linearize.cu", 1262),
-            K3_BENCH: ("ba_schur.cu", 2023)}.items():
+            K3_BENCH: ("ba_schur.cu", 2023),
+            K2_BENCH: ("ba_linearize.cu", 1439),
+            K4_PATH_B: ("ba_schur.cu", 1891)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,

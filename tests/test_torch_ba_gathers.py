@@ -71,7 +71,9 @@ def _recording_gathers(monkeypatch):
 def test_gather_path_equals_plain_gathers_bit_for_bit(monkeypatch, refine):
     """K8 and K9 copy rows, so pallas_gathers changes no bit of the solve;
     the solve gathers poses (C, 6), intrinsics (G, 7), Hpp^-1 rows (P, 9)
-    through K8 and the rank-space points (P, 3) through K9."""
+    through K8 and the rank-space points (P, 3) through K9.  Both also put
+    Wc's rows (O, 18) in camera order through K8, with or without
+    pallas_gathers (K4 reads W in that order)."""
     prob = _problem()
     kw = dict(cam_group=np.zeros(8, np.int32), n_groups=1) if refine else {}
     cfg = tba.BAConfig(precond="schur_diag", refine_intrinsics=refine, **GATHER_PATH)
@@ -84,17 +86,22 @@ def test_gather_path_equals_plain_gathers_bit_for_bit(monkeypatch, refine):
     G = 1 if refine else 8
     P = prob["points"].shape[0]
     assert set(seen) == {("gather_table", 8, 6), ("gather_table", G, 7),
-                         ("gather_table", P, 9), ("gather_sorted", P, 3)}
+                         ("gather_table", P, 9), ("gather_sorted", P, 3),
+                         ("gather_table", prob["obs_cam"].shape[0], 18)}
 
 
 def test_schur_diag_gather_keeps_the_4096_row_gate(monkeypatch):
     """Above 4096 point ranks the Hpp^-1 gather takes the plain gather, as
     in the reference (:673); the pose, intrinsic and point gathers still go
-    through K8 and K9."""
+    through K8 and K9.  (Wc's rows in camera order, (O, 18), go through K8
+    at any size: that gather is the port's own, outside the gate.)"""
     prob = _problem(n_cams=6, n_points=4200)
     seen = _recording_gathers(monkeypatch)
     cfg = tba.BAConfig(precond="schur_diag", **dict(GATHER_PATH, max_iters=1))
     out = _solve(prob, cfg)
     assert np.isfinite(float(out[4]["final_cost"]))
     assert ("gather_sorted", 4200, 3) in seen and ("gather_table", 6, 6) in seen
-    assert not any(name == "gather_table" and rows > 4096 for name, rows, _ in seen)
+    wc_seg = ("gather_table", prob["obs_cam"].shape[0], 18)
+    assert wc_seg in seen
+    assert not any(name == "gather_table" and rows > 4096 for name, rows, d in seen
+                   if (name, rows, d) != wc_seg)

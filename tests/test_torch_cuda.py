@@ -546,3 +546,149 @@ def test_ba_gather_path_on_card_equals_plain_gathers(dev):
             assert torch.equal(a, b)
         assert float(out[4]["final_cost"]) == float(plain[4]["final_cost"])
         assert float(out[4]["final_cost"]) < 0.1 * float(out[4]["initial_cost"])
+
+
+# K2 and K4 at the BA path's shapes: the 200-view final BA's (200, 2048)
+# table padded to 32,768 rows as the engine pads it (rows of camera 0 at
+# rank 2^30, weight 0), and the 500-camera bench problem's 1,484,375 rows.
+_ENGINE_SHAPES = {"200-view": (dict(n_cams=200, n_points=2048, seed=2, arc_deg=120.0,
+                                    vis_prob=0.06), 32768),
+                  "500-camera": (dict(n_cams=500, n_points=50000, seed=3, arc_deg=350.0,
+                                      vis_prob=0.06), None)}
+
+
+@pytest.fixture(scope="module")
+def engine_tables():
+    """K2's arguments and the camera and one-group layouts at each shape of
+    _ENGINE_SHAPES, built once per module on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA; none is visible to torch")
+    dev = torch.device("cuda")
+    out = {}
+    for name, (kw, rows) in _ENGINE_SHAPES.items():
+        prob = point_sorted_ba_problem(**kw)
+        n = len(prob["obs_cam"])
+        pad = (rows or n) - n
+        cam = np.concatenate([prob["obs_cam"], np.zeros(pad, np.int64)]).astype(np.int32)
+        ranks = np.concatenate([prob["obs_pt"], np.full(pad, 2 ** 30)]).astype(np.int32)
+        uv = np.concatenate([prob["obs_uv"], np.zeros((pad, 2), np.float32)])
+        w = (np.arange(n + pad) < n).astype(np.float32)
+        T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        ps = T(np.concatenate([prob["cam_rot"], prob["cam_t"]], 1))
+        cam, ranks = T(cam), T(ranks)
+        C, P = prob["intr"].shape[0], prob["points"].shape[0]
+        grp = torch.zeros_like(cam)
+        out[name] = dict(args=(tba.camera_table(ps), T(prob["intr"]), T(prob["points"]), cam,
+                               cam, ranks, T(uv.T.copy()), T(w)),
+                         grp=grp, C=C, P=P, layout=ot.obs_layout(cam, C, ranks, P),
+                         grp_layout=ot.obs_layout(grp, 1, ranks, P))
+    return out
+
+
+def _w_close(got, f64, w_dtype, what):
+    """A W table within one bf16 ulp of the float64 twin (module note)."""
+    w64 = f64.double() if w_dtype == "f32" else f64.to(torch.bfloat16).double()
+    ulp = torch.maximum(got.double().abs(), w64.abs()) * 2.0 ** -7
+    assert bool(((got.double() - w64).abs() <= ulp + 1e-6 * float(w64.abs().max())).all()), what
+
+
+@pytest.mark.parametrize("w_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("refine", [False, True])
+@pytest.mark.parametrize("shape", list(_ENGINE_SHAPES))
+def test_k2_engine_shapes_match_float64_twin_and_repeat(engine_tables, shape, refine, w_dtype):
+    """K2 (held on the cameras, refine on one group) at the BA path's shapes
+    with the camera-ordered W copy requested: the sums within 4x the
+    float32 twin's error against the float64 twin, each W within one bf16
+    ulp, the copy equal to wcT[:, seg_perm] bit for bit, repeats
+    bit-identical, and the layouts' arrival counters left at zero."""
+    t = engine_tables[shape]
+    args = list(t["args"])
+    kw = dict(refine=refine, refine_mask=(1.0,) * 7 if refine else (0.0,) * 7, huber_delta=4.0,
+              w_dtype=w_dtype, seg_ordered_w=True)
+    if refine:
+        args[1], args[4] = args[1][:1], t["grp"]
+    lay = dict(layout=t["layout"], grp_layout=t["grp_layout"] if refine else None)
+    got = ot.linearize_reduce_radial3_t(*args, **kw, **lay)
+    again = ot.linearize_reduce_radial3_t(*args, **kw, **lay)
+    torch.cuda.synchronize()
+    assert len(got) == (6 if refine else 4) and all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[-1], got[2][:, t["layout"].seg_perm.long()])
+    assert not t["layout"].arrivals.any() and not t["grp_layout"].arrivals.any()
+    f32 = ot.linearize_reduce_radial3_t_reference(*args, **kw)
+    f64 = ot.linearize_reduce_radial3_t_reference(*_f64(args), **dict(kw, w_dtype="f32"))
+    for i in range(len(got)):
+        if i in (2, 4, len(got) - 1):
+            _w_close(got[i], f64[i], w_dtype, f"K2 {shape} output {i}")
+        else:
+            _oracle_close(got[i], f32[i], f64[i].double(), f"K2 {shape} output {i}")
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [6, 7, 9])
+@pytest.mark.parametrize("shape", list(_ENGINE_SHAPES))
+def test_k4_read_paths_give_the_same_bits(engine_tables, shape, d, w_dtype):
+    """K4 on the cameras through the permutation and on the same W in
+    camera order, lane-major and row-major; on one group in order (its
+    permutation is the identity) and through the identity permutation: the
+    reads of one table give the same bits, repeats too (the arrival
+    counters are left at zero), within 4x the float32 twin's error against
+    the float64 twin."""
+    t = engine_tables[shape]
+    cam, ranks = t["args"][3], t["args"][5]
+    lay, glay = t["layout"], t["grp_layout"]
+    assert not lay.in_seg_order and glay.in_seg_order
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    W = torch.randn((3 * d, cam.shape[0]), generator=gen, device="cuda").to(w_dtype)
+    z = torch.randn((t["P"], 3), generator=gen, device="cuda")
+    perm = lay.seg_perm.long()
+    cams = [ot.schur_bwd_t(W, cam, ranks, z, t["C"], layout=lay),
+            ot.schur_bwd_t(W, cam, ranks, z, t["C"], layout=lay, w_seg=W[:, perm].contiguous()),
+            ot.schur_bwd_t(W, cam, ranks, z, t["C"], layout=lay,
+                           w_seg=W.T[perm].contiguous().T),
+            ot.schur_bwd_t(W, cam, ranks, z, t["C"], layout=lay)]
+    grp = [ot.schur_bwd_t(W, t["grp"], ranks, z, 1, layout=glay),
+           ot.schur_bwd_t(W, t["grp"], ranks, z, 1,
+                          layout=dataclasses.replace(glay, in_seg_order=False)),
+           ot.schur_bwd_t(W, t["grp"], ranks, z, 1, layout=glay)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(cams[0], c) for c in cams[1:])
+    assert all(torch.equal(grp[0], g) for g in grp[1:])
+    assert not lay.arrivals.any() and not glay.arrivals.any()
+    for got, ids, n in ((cams[0], cam, t["C"]), (grp[0], t["grp"], 1)):
+        _oracle_close(got, ot.schur_bwd_t_reference(W, ids, ranks, z, n),
+                      ot.schur_bwd_t_reference(W, ids, ranks, z.double(), n), f"K4 D={d} n={n}")
+
+
+def test_k2_and_k4_launch_counts_at_path_a(engine_tables):
+    """At path A's shape K4 is one kernel launch per call (the chunk sums
+    and the finish in one), K2 held two and K2 refine three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusfm_torch.tools.profile_rung import _device_kernels
+
+    t = engine_tables["200-view"]
+    a, cam, ranks = t["args"], t["args"][3], t["args"][5]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Wc = torch.randn((18, cam.shape[0]), generator=gen, device="cuda").to(torch.bfloat16)
+    Wg = torch.randn((21, cam.shape[0]), generator=gen, device="cuda").to(torch.bfloat16)
+    z = torch.randn((t["P"], 3), generator=gen, device="cuda")
+    wseg = Wc[:, t["layout"].seg_perm.long()].contiguous()
+    refine = a[:1] + (a[1][:1],) + a[2:4] + (t["grp"],) + a[5:]
+    calls = {"K4 cameras": (1, lambda: ot.schur_bwd_t(Wc, cam, ranks, z, t["C"],
+                                                      layout=t["layout"], w_seg=wseg)),
+             "K4 group": (1, lambda: ot.schur_bwd_t(Wg, t["grp"], ranks, z, 1,
+                                                    layout=t["grp_layout"])),
+             "K2 held": (2, lambda: ot.linearize_reduce_radial3_t(*a, w_dtype="bf16",
+                                                                   layout=t["layout"])),
+             "K2 refine": (3, lambda: ot.linearize_reduce_radial3_t(
+                 *refine, refine=True, refine_mask=(1.0,) * 7, w_dtype="bf16",
+                 layout=t["layout"], grp_layout=t["grp_layout"], seg_ordered_w=True))}
+    for name, (kernels, fn) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_kernels(prof)
+        assert len(rows) == kernels and all(n == 5 for _, n, _ in rows), (name, rows)

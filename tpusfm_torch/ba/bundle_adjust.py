@@ -415,7 +415,9 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     obs_uvT = obs_uv.T.contiguous()
     safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
     layout = ot.obs_layout(obs_cam, C, ranks, P)
-    grp_layout = ot.obs_layout(obs_grp, G) if refine else None
+    # K4 reads Wc in camera order (sys["Wc_seg"], written by K2 or gathered
+    # by K8); a one-group Wg is in group order already (in_seg_order).
+    grp_layout = ot.obs_layout(obs_grp, G, ranks) if refine else None
     wdt = ot._w_torch_dtype(cfg.w_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     full66 = torch.tensor(ot._FULL66, device=dev)
@@ -441,12 +443,13 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         outs = ot.linearize_reduce_radial3_t(
             camera_table(ps), gi, pts, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine=refine,
             refine_mask=cfg.refine_mask(), huber_delta=cfg.huber_delta, w_dtype=cfg.w_dtype,
-            layout=layout, grp_layout=grp_layout)
+            layout=layout, grp_layout=grp_layout, seg_ordered_w=True)
         camred, ptred, Wc = outs[:3]
         sys = {"Hcc": camred[:, full66].reshape(C, D, D), "gc": camred[:, 21:27], "Wc": Wc,
-               "Hpp": ptred[:, full33].reshape(P, 3, 3), "gp": ptred[:, 6:9]}
+               "Wc_seg": outs[-1], "Hpp": ptred[:, full33].reshape(P, 3, 3),
+               "gp": ptred[:, 6:9]}
         if refine:
-            grpred, sys["Wg"] = outs[3:]
+            grpred, sys["Wg"] = outs[3:5]
             sys["Hcg"] = camred[:, 27:27 + D * E].reshape(C, D, E)
             sys["Hgg"] = grpred[:, full77].reshape(G, E, E)
             sys["gg"] = grpred[:, 28:35]
@@ -471,10 +474,12 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         ptvals = torch.cat([torch.einsum("oki,okj->oij", Jp, Jp).reshape(-1, 9),
                             torch.einsum("oki,ok->oi", Jp, r)], 1)
         ptred = ot.segsum_sorted_t(ptvals.T.contiguous(), ranks, P, layout=layout)
+        wc_rows = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3)
         sys = {"Hcc": camred[:, :D * D].reshape(C, D, D), "gc": camred[:, D * D:D * D + D],
                "Hpp": ptred[:, :9].reshape(P, 3, 3), "gp": ptred[:, 9:],
-               "Wc": torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3).to(wdt).T
-               .contiguous()}
+               "Wc": wc_rows.to(wdt).T.contiguous(),
+               # Wc's rows in camera order through K8, kept row-major.
+               "Wc_seg": ot.gather_table(wc_rows, layout.seg_perm).to(wdt).T}
         if refine:
             sys["Hcg"] = camred[:, D * D + D:].reshape(C, D, E)
             grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
@@ -500,8 +505,9 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         Hinv = torch.where(rank_valid[:, None, None], _inv3(_damp_blocks(sys["Hpp"], lam)), zero)
         gp, Wc = sys["gp"], sys["Wc"]
         z = torch.einsum("pij,pj->pi", Hinv, gp)
-        rhs = {"c": (-sys["gc"] + ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout))
-               * upd_c}
+        Wc_seg = sys["Wc_seg"]
+        rhs = {"c": (-sys["gc"] + ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout,
+                                                 w_seg=Wc_seg)) * upd_c}
         if refine:
             Hcg, Hgg_d, Wg = sys["Hcg"], _damp_blocks(sys["Hgg"], lam), sys["Wg"]
             rhs["g"] = (-sys["gg"] + ot.schur_bwd_t(Wg, obs_grp, ranks, z, G, layout=grp_layout)
@@ -535,7 +541,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             y = (ot.schur_fwd_t(Wc, obs_cam, ranks, vc, P, layout=layout)
                  + ot.schur_fwd_t(Wg, obs_grp, ranks, vg, P, layout=layout))
             zz = torch.einsum("pij,pj->pi", Hinv, y)
-            bc = ot.schur_bwd_t(Wc, obs_cam, ranks, zz, C, layout=layout)
+            bc = ot.schur_bwd_t(Wc, obs_cam, ranks, zz, C, layout=layout, w_seg=Wc_seg)
             bg = ot.schur_bwd_t(Wg, obs_grp, ranks, zz, G, layout=grp_layout)
             Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc) + torch.einsum("cde,ce->cd", Hcg,
                                                                        vg[cam_group])

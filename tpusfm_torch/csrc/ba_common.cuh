@@ -7,10 +7,26 @@
 // summation order.  So a segment's rows (seg_perm[seg_start[s] ..
 // seg_start[s+1]), in increasing row order) are cut into chunks of
 // chunk_rows rows, numbered chunk_start[s] .. chunk_start[s+1] over all
-// segments (ObsLayout in ops/obs_table.py).  Pass 1 gives each chunk one
-// block, which sums its rows with a fixed shuffle tree and writes a partial
-// row; pass 2 (chunk_finish_kernel) adds each segment's partials in chunk
-// order.  No atomics, so repeats give the same bits.
+// segments (ObsLayout in ops/obs_table.py).  Each chunk gets one block,
+// which sums its rows with a fixed shuffle tree into a partial row.  The
+// partials of a segment are then added in chunk order, in one of two ways:
+//
+// - chunk_finish_kernel, a second launch with one thread per output value
+//   that adds the segment's partials serially (K3's camera pass and K6);
+// - finish_chunk, inside the chunk kernel itself (K2's camera and group
+//   passes, K4): a segment of one chunk writes its sum directly; otherwise
+//   each chunk block writes its partial, runs __threadfence() and adds one
+//   to the segment's int32 arrival counter, and the block that arrives
+//   last adds the segment's partials (thread t takes chunks t, t + 256, ...
+//   in order, then the block_sum tree adds the threads) and sets the
+//   counter back to 0.
+//
+// Determinism: no float atomics.  The integer atomic only decides which
+// block finishes; the float order is fixed by the chunk index, so two calls
+// on the same inputs give the same bits.  The arrival counters belong to
+// the layout (ObsLayout.arrivals, zeroed when it is built) and every call
+// leaves them at 0, so two calls on one layout must not run on two streams
+// at once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,7 +39,7 @@ constexpr int kThreads = 256;  // every BA kernel runs 256-thread blocks
 constexpr int kWarps = kThreads / 32;
 
 // Makes `device` the calling thread's current device for the life of the
-// scope and restores the previous one after it.  The K3, K8 and K9
+// scope and restores the previous one after it.  The K2, K3, K4, K8 and K9
 // launchers take it in place of a Python device guard around the call: most
 // calls find `device` current already, which costs one cudaGetDevice.
 struct DeviceScope {
@@ -105,9 +121,9 @@ __device__ __forceinline__ bool chunk_rows_of(const int* __restrict__ seg_start,
   return true;
 }
 
-// Pass 2 of a two-level segment sum: out[s][v] = sum over the chunks of
-// segment s, in order, of part[chunk][v] (k values per row); 0 for an empty
-// segment.  One thread per output value.
+// The second launch of a two-level segment sum: out[s][v] = sum over the
+// chunks of segment s, in order, of part[chunk][v] (k values per row); 0 for
+// an empty segment.  One thread per output value.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_finish_kernel(const T* __restrict__ part, const int* __restrict__ chunk_start, int n, int k,
@@ -119,6 +135,52 @@ chunk_finish_kernel(const T* __restrict__ part, const int* __restrict__ chunk_st
   const int end = chunk_start[s + 1];
   for (int c = chunk_start[s]; c < end; ++c) acc += part[(size_t)c * k + v];
   out[i] = acc;
+}
+
+// Writes zeros to the output row of an empty segment: block b < n covers
+// segment b (every grid of chunk blocks has at least n blocks), since no
+// chunk block meets an empty segment.
+template <int K>
+__device__ __forceinline__ void zero_empty_segment(const int* __restrict__ chunk_start, int n,
+                                                   float* __restrict__ out) {
+  const int b = blockIdx.x;
+  if (b < n && chunk_start[b + 1] == chunk_start[b] && threadIdx.x < K)
+    out[(size_t)b * K + threadIdx.x] = 0.f;
+}
+
+// The one-launch finish of a two-level sum (see the note at the top), called
+// by every thread of chunk block b of segment seg after block_sum<K> has
+// left the chunk's sums in `sums` (shared, K floats, reused here).  Writes
+// out[seg] once the segment's last chunk is in.
+template <int K>
+__device__ __forceinline__ void finish_chunk(float* sums, const int* __restrict__ chunk_start,
+                                             int seg, int b, float* __restrict__ part,
+                                             int* __restrict__ arrivals,
+                                             float* __restrict__ out) {
+  __shared__ bool last;
+  const int c0 = chunk_start[seg], nc = chunk_start[seg + 1] - c0;
+  if (nc == 1) {
+    if (threadIdx.x < K) out[(size_t)seg * K + threadIdx.x] = sums[threadIdx.x];
+    return;
+  }
+  if (threadIdx.x < K) part[(size_t)b * K + threadIdx.x] = sums[threadIdx.x];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + seg, 1) == nc - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  for (int c = threadIdx.x; c < nc; c += kThreads) {
+    const float* p = part + (size_t)(c0 + c) * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] += __ldcg(p + k);
+  }
+  block_sum<K>(acc, sums);
+  if (threadIdx.x < K) out[(size_t)seg * K + threadIdx.x] = sums[threadIdx.x];
+  if (threadIdx.x == 0) arrivals[seg] = 0;
 }
 
 inline int launch_chunk_finish(const float* part, const int* chunk_start, int n, int k,

@@ -42,12 +42,13 @@ using namespace tpusfm_ba;
 constexpr unsigned kFull = 0xffffffffu;
 
 // table[id][c] for the id held by lane `r` of the warp (every lane must
-// call it); 0 where that id is outside the table (held as -1).
+// call it); 0 where that id is outside the table (held as -1), and no load
+// where the element is not `live` (past the tile, where c may exceed d).
 template <typename I>
 __device__ __forceinline__ float tile_value(const float* __restrict__ table, int d, int id,
-                                            int r, int c) {
+                                            int r, int c, bool live) {
   const int src = __shfl_sync(kFull, id, r);
-  return src >= 0 ? __ldg(table + (I)src * d + c) : 0.f;
+  return live && src >= 0 ? __ldg(table + (I)src * d + c) : 0.f;
 }
 
 // One warp per tile of 32 output rows; kD > 0 fixes D at compile time,
@@ -66,7 +67,8 @@ gather_tiles_kernel(const float* __restrict__ table, int n, int d_rt, const int*
   float* dst = out + row0 * d;
   if (kD > 0 && vec && rows == 32) {
     // 8D float4 per tile; every lane runs every step so the shuffles see
-    // the whole warp, and the vectors past the tile are not stored.
+    // the whole warp, and the vectors past the tile are neither loaded (their
+    // column would run past row 31's) nor stored.
 #pragma unroll
     for (int j0 = 0; j0 < 8 * kD; j0 += 32) {
       const int j = j0 + lane;
@@ -75,7 +77,7 @@ gather_tiles_kernel(const float* __restrict__ table, int n, int d_rt, const int*
       for (int t = 0; t < 4; ++t) {
         const int e = 4 * j + t;
         const int r = min(e / kD, 31);
-        v[t] = tile_value<I>(table, kD, id, r, e - r * kD);
+        v[t] = tile_value<I>(table, kD, id, r, e - r * kD, j < 8 * kD);
       }
       if (j < 8 * kD) reinterpret_cast<float4*>(dst)[j] = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -85,7 +87,7 @@ gather_tiles_kernel(const float* __restrict__ table, int n, int d_rt, const int*
   for (int e0 = 0; e0 < 32 * d; e0 += 32) {
     const int e = e0 + lane;
     const int r = e / d;  // < 32; rows past the tile hold id -1
-    const float v = tile_value<I>(table, d, id, r, e - r * d);
+    const float v = tile_value<I>(table, d, id, r, e - r * d, true);
     if (e < count) dst[e] = v;
   }
 }

@@ -36,24 +36,32 @@
 //
 // What bounds it: about 300 FLOPs of per-observation math in each pass
 // (refine adds ~100 for Jg and its products), against ~100 bytes moved per
-// observation (ids, uv, weight, point, the bf16 W rows) and more in 32-byte
-// sectors, since the camera and group passes gather rows through a
-// permutation: a few FLOPs per byte, so memory- and latency-bound on this
-// card.  None of the TPU machinery (one-hot MXU contractions, 128-lane
-// windows, the three-way bf16 split) carries over: rows and tables are
-// indexed directly, so ranks need not be dense.
+// observation (ids, uv, weight, point, the bf16 W rows): a few FLOPs per
+// byte, so memory- and latency-bound on this card.  The passes are built
+// to keep many rows in flight and the stores coalesced.  The rank pass
+// gives each rank a warp (lane l takes rows l, l + 32, ...): a 2,048-rank
+// table fills 256 blocks, a long track is split 32 ways, and the lanes
+// write neighbouring W columns.  The camera pass gives one block to each
+// chunk of a camera's rows (ObsLayout's chunks), so the engine's padding
+// rows on camera 0 spread over several blocks, and rows of weight exactly
+// 0 (the padding among them) skip the math in every pass.  On request the
+// camera pass, which meets the rows in camera order anyway, also writes W
+// in that order (wseg), the copy K4 reads without the permutation.  None of
+// the TPU machinery (one-hot MXU contractions, 128-lane windows, the
+// three-way bf16 split) carries over: rows and tables are indexed directly,
+// so ranks need not be dense.
 //
-// Determinism: no atomics.  The rank pass, one thread per rank, walks the
-// rank's rows [rank_start[r], rank_start[r+1]) in order, writes W (and Wg)
-// and sums Hpp/gp in registers.  Rows outside every rank range (rank >= P,
-// e.g. invalid rows at 2^30) get W from a grid-stride tail and add to no
-// point.  The camera pass, one block per camera, walks the camera's rows
-// through a stable permutation (thread t takes rows t, t + 256, ...),
-// recomputes the same math and sums the camera values with a fixed shuffle
-// tree.  The group pass recomputes it once more over the group's rows; one
-// group usually holds every row (one physical camera), so it is a two-level
-// sum over fixed chunks of those rows (ba_common.cuh).  Two calls on the
-// same inputs therefore give the same bits.
+// Determinism: no float atomics.  A rank's lanes each walk their rows in
+// order and the warp adds them with a fixed shuffle tree.  Rows outside
+// every rank range (rank >= P, e.g. invalid rows at 2^30) get W from a
+// grid-stride tail and add to no point.  The camera pass recomputes the
+// same math through the camera permutation (thread t takes a chunk's rows
+// t, t + 256, ...), sums the block with a fixed shuffle tree and adds a
+// camera's chunks in chunk order (finish_chunk, ba_common.cuh: an int32
+// arrival counter picks the block that does).  The group pass does the
+// same over the group's rows; one group usually holds every row (one
+// physical camera).  Two calls on the same inputs therefore give the same
+// bits.
 
 #include "ba_common.cuh"
 
@@ -217,22 +225,35 @@ __device__ __forceinline__ void write_w(WT* wcT, WT* wgT, int O, int o, const Ob
   }
 }
 
-// Rank pass: blocks [0, ceil(P/256)) take one rank per thread; the last
-// kTailBlocks blocks write W for rows that belong to no rank.
+// A row of weight exactly 0 gives W = 0 and exact-zero Jacobians, residual
+// and cost (linearize_obs: `valid` is false, so x = y = 0, and w = ... *
+// w_in = 0 multiplies every output), so the reduced passes skip its math
+// and write a zero W row.  A negative weight is not skipped.
+__device__ __forceinline__ bool weighted(const Tables& t, int o) { return t.obs_w[o] != 0.f; }
+
+// Rank pass: blocks [0, rank_blocks) give each rank one warp, whose lane l
+// takes the rank's rows l, l + 32, ... in order, writes their W (and Wg)
+// columns (neighbouring lanes, neighbouring columns) and sums Hpp/gp; the
+// warp adds its lanes with a fixed shuffle tree.  The last kTailBlocks
+// blocks write W for the rows that belong to no rank, and zero the columns
+// of the segment-ordered copy wseg past the last camera (rows whose camera
+// id is outside [0, C)), which the camera pass does not reach.
 template <typename WT, bool kRefine>
 __global__ void __launch_bounds__(kThreads)
-lin_point_kernel(Tables t, const int* __restrict__ rank_start, float* __restrict__ ptred,
-                 WT* __restrict__ wcT, WT* __restrict__ wgT, int rank_blocks) {
+lin_rank_kernel(Tables t, const int* __restrict__ rank_start, const int* __restrict__ seg_start,
+                float* __restrict__ ptred, WT* __restrict__ wcT, WT* __restrict__ wgT,
+                WT* __restrict__ wseg, int rank_blocks) {
   ObsLin lin;
   if ((int)blockIdx.x < rank_blocks) {
-    const int r = blockIdx.x * kThreads + threadIdx.x;
-    if (r >= t.P) return;
+    const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (r >= t.P) return;  // uniform across the warp
+    const int lane = threadIdx.x & 31;
     const float X0 = t.pts[(size_t)r * 3], X1 = t.pts[(size_t)r * 3 + 1],
                 X2 = t.pts[(size_t)r * 3 + 2];
     float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int end = rank_start[r + 1];
-    for (int o = rank_start[r]; o < end; ++o) {
-      if (!linearize_row<kRefine>(t, o, X0, X1, X2, lin)) {
+    for (int o = rank_start[r] + lane; o < end; o += 32) {
+      if (!weighted(t, o) || !linearize_row<kRefine>(t, o, X0, X1, X2, lin)) {
         write_w<WT, kRefine>(wcT, wgT, t.O, o, nullptr);
         continue;
       }
@@ -246,37 +267,58 @@ lin_point_kernel(Tables t, const int* __restrict__ rank_start, float* __restrict
       for (int i = 0; i < 3; ++i) acc[6 + i] += lin.jpu[i] * lin.ru + lin.jpv[i] * lin.rv;
     }
 #pragma unroll
-    for (int k = 0; k < 9; ++k) ptred[(size_t)r * 9 + k] = acc[k];
+    for (int k = 0; k < 9; ++k)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < 9; ++k) ptred[(size_t)r * 9 + k] = acc[k];
     return;
   }
   // Rows before rank 0 or at ranks >= P: zero point, no per-rank sum.
   const int head = rank_start[0];
   const int tail = rank_start[t.P];
+  const int loose = head + (t.O - tail);
+  const int seg_end = seg_start[t.C];
+  const int total = loose + (wseg ? t.O - seg_end : 0);
   const int stride = kTailBlocks * kThreads;
-  for (int i = (blockIdx.x - rank_blocks) * kThreads + threadIdx.x; i < head + (t.O - tail);
-       i += stride) {
+  for (int i = (blockIdx.x - rank_blocks) * kThreads + threadIdx.x; i < total; i += stride) {
+    if (i >= loose) {
+      write_w<WT, false>(wseg, nullptr, t.O, seg_end + (i - loose), nullptr);
+      continue;
+    }
     const int o = i < head ? i : tail + (i - head);
-    const bool ok = linearize_row<kRefine>(t, o, 0.f, 0.f, 0.f, lin);
+    const bool ok = weighted(t, o) && linearize_row<kRefine>(t, o, 0.f, 0.f, 0.f, lin);
     write_w<WT, kRefine>(wcT, wgT, t.O, o, ok ? &lin : nullptr);
   }
 }
 
-// Camera pass: one block per camera sums its rows' 28 (refine: 70) camera
-// values [Hcc upper 21 | gc 6 | (Hcg row-major 42) | cost].
-template <bool kRefine>
+// Camera pass: one block per chunk of a camera's rows sums their 28
+// (refine: 70) camera values [Hcc upper 21 | gc 6 | (Hcg row-major 42) |
+// cost]; thread t takes the chunk's rows t, t + 256, ... through the
+// camera permutation, and the camera's last chunk block to arrive adds its
+// chunks (finish_chunk).  With wseg it also writes each row's W into column
+// i of wseg, the i-th row of the camera order.
+template <typename WT, bool kRefine>
 __global__ void __launch_bounds__(kThreads)
 lin_camera_kernel(Tables t, const int* __restrict__ seg_perm, const int* __restrict__ seg_start,
-                  float* __restrict__ camred) {
+                  const int* __restrict__ chunk_start, int chunk_rows, float* __restrict__ part,
+                  int* __restrict__ arrivals, float* __restrict__ camred,
+                  WT* __restrict__ wseg) {
   constexpr int K = kRefine ? 70 : 28;
   __shared__ float sums[K];
-  const int c = blockIdx.x;
+  zero_empty_segment<K>(chunk_start, t.C, camred);
+  ChunkRows ch;
+  if (!chunk_rows_of(seg_start, chunk_start, t.C, chunk_rows, blockIdx.x, ch)) return;
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
   ObsLin lin;
-  const int end = seg_start[c + 1];
-  for (int i = seg_start[c] + threadIdx.x; i < end; i += kThreads) {
-    if (!linearize_row_ranked<kRefine>(t, seg_perm[i], lin)) continue;
+  for (int i = ch.begin + threadIdx.x; i < ch.end; i += kThreads) {
+    const int o = seg_perm[i];
+    const bool ok = weighted(t, o) && linearize_row_ranked<kRefine>(t, o, lin);
+    if (wseg) write_w<WT, false>(wseg, nullptr, t.O, i, ok ? &lin : nullptr);
+    if (!ok) continue;
     int k = 0;
 #pragma unroll
     for (int a = 0; a < 6; ++a)
@@ -294,16 +336,19 @@ lin_camera_kernel(Tables t, const int* __restrict__ seg_perm, const int* __restr
     acc[K - 1] += lin.cost;
   }
   block_sum<K>(acc, sums);
-  if (threadIdx.x < K) camred[(size_t)c * K + threadIdx.x] = sums[threadIdx.x];
+  finish_chunk<K>(sums, chunk_start, ch.seg, blockIdx.x, part, arrivals, camred);
 }
 
-// Group pass (refine mode), pass 1 of a two-level sum: one block per chunk
-// of a group's rows writes the chunk's [Hgg upper 28 | gg 7].
+// Group pass (refine mode): one block per chunk of a group's rows sums
+// [Hgg upper 28 | gg 7]; the group's last chunk block to arrive adds its
+// chunks (finish_chunk).
 __global__ void __launch_bounds__(kThreads)
 lin_group_kernel(Tables t, const int* __restrict__ grp_perm, const int* __restrict__ grp_start,
                  const int* __restrict__ grp_chunk_start, int chunk_rows,
-                 float* __restrict__ part) {
+                 float* __restrict__ part, int* __restrict__ arrivals,
+                 float* __restrict__ grpred) {
   __shared__ float sums[kGrpVals];
+  zero_empty_segment<kGrpVals>(grp_chunk_start, t.G, grpred);
   ChunkRows ch;
   if (!chunk_rows_of(grp_start, grp_chunk_start, t.G, chunk_rows, blockIdx.x, ch)) return;
   float acc[kGrpVals];
@@ -311,7 +356,8 @@ lin_group_kernel(Tables t, const int* __restrict__ grp_perm, const int* __restri
   for (int k = 0; k < kGrpVals; ++k) acc[k] = 0.f;
   ObsLin lin;
   for (int i = ch.begin + threadIdx.x; i < ch.end; i += kThreads) {
-    if (!linearize_row_ranked<true>(t, grp_perm[i], lin)) continue;
+    const int o = grp_perm[i];
+    if (!weighted(t, o) || !linearize_row_ranked<true>(t, o, lin)) continue;
     int k = 0;
 #pragma unroll
     for (int a = 0; a < 7; ++a)
@@ -321,35 +367,37 @@ lin_group_kernel(Tables t, const int* __restrict__ grp_perm, const int* __restri
     for (int a = 0; a < 7; ++a) acc[28 + a] += lin.jgu[a] * lin.ru + lin.jgv[a] * lin.rv;
   }
   block_sum<kGrpVals>(acc, sums);
-  if (threadIdx.x < kGrpVals) part[(size_t)blockIdx.x * kGrpVals + threadIdx.x] = sums[threadIdx.x];
+  finish_chunk<kGrpVals>(sums, grp_chunk_start, ch.seg, blockIdx.x, part, arrivals, grpred);
 }
 
-struct GroupArgs {
-  const int* grp_perm;
-  const int* grp_start;
-  const int* grp_chunk_start;
-  int n_chunks, chunk_rows;
-  float* grpred;
-  void* wgT;
-  float* part;
+// A segment layout as the camera and group passes read it (ObsLayout).
+struct SegArgs {
+  const int* perm;
+  const int* start;
+  const int* chunk_start;
+  int* arrivals;
+  int n_chunks;
 };
 
 template <typename WT, bool kRefine>
-int launch(const Tables& t, const int* rank_start, const int* seg_perm, const int* seg_start,
-           const GroupArgs& g, float* camred, float* ptred, void* wcT, cudaStream_t stream) {
-  const int rank_blocks = (t.P + kThreads - 1) / kThreads;
-  lin_point_kernel<WT, kRefine><<<rank_blocks + kTailBlocks, kThreads, 0, stream>>>(
-      t, rank_start, ptred, static_cast<WT*>(wcT), static_cast<WT*>(g.wgT), rank_blocks);
+int launch(const Tables& t, const int* rank_start, const SegArgs& cams, const SegArgs& grps,
+           int chunk_rows, float* camred, float* ptred, void* wcT, void* wseg, float* grpred,
+           void* wgT, float* part, cudaStream_t stream) {
+  const int rank_blocks = (t.P + kWarps - 1) / kWarps;
+  lin_rank_kernel<WT, kRefine><<<rank_blocks + kTailBlocks, kThreads, 0, stream>>>(
+      t, rank_start, cams.start, ptred, static_cast<WT*>(wcT), static_cast<WT*>(wgT),
+      static_cast<WT*>(wseg), rank_blocks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lin_camera_kernel<kRefine><<<t.C, kThreads, 0, stream>>>(t, seg_perm, seg_start, camred);
+  lin_camera_kernel<WT, kRefine><<<cams.n_chunks, kThreads, 0, stream>>>(
+      t, cams.perm, cams.start, cams.chunk_start, chunk_rows, part, cams.arrivals, camred,
+      static_cast<WT*>(wseg));
   err = cudaGetLastError();
   if (err != cudaSuccess || !kRefine) return (int)err;
-  lin_group_kernel<<<g.n_chunks, kThreads, 0, stream>>>(t, g.grp_perm, g.grp_start,
-                                                        g.grp_chunk_start, g.chunk_rows, g.part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_chunk_finish(g.part, g.grp_chunk_start, t.G, kGrpVals, g.grpred, stream);
+  lin_group_kernel<<<grps.n_chunks, kThreads, 0, stream>>>(
+      t, grps.perm, grps.start, grps.chunk_start, chunk_rows,
+      part + (size_t)cams.n_chunks * (kRefine ? 70 : 28), grps.arrivals, grpred);
+  return (int)cudaGetLastError();
 }
 
 // Unreduced mode: one thread per observation writes its column of every
@@ -410,40 +458,50 @@ int launch_unreduced(const Tables& t, float* camvalsT, float* ptvalsT, void* wcT
 }  // namespace
 
 // Inputs as in the wrapper (ops/obs_table.py linearize_reduce_radial3_t):
-// float32 tables, int32 id columns, all contiguous on one device;
-// rank_start (P + 1), seg_perm (O) and seg_start (C + 1) from ObsLayout.
-// refine_mask (host, 7 floats) selects refine mode; it then also takes the
-// group layout (grp_perm (O), grp_start and grp_chunk_start (G + 1), at
-// most n_chunks chunks of chunk_rows rows), grpred (G, 35), wgT (21, O) of
-// W's type and the scratch part (n_chunks, 35); all null otherwise.
-// w_bf16 selects W's storage type.  Launches every pass on `stream` and
-// returns the CUDA error code of the launches (0 = success).
-extern "C" int tpusfm_ba_linearize(const float* camtab, const float* grptab, const float* pts,
-                                   const int* obs_cam, const int* obs_grp, const int* ranks,
-                                   const float* uvT, const float* obs_w, const int* rank_start,
-                                   const int* seg_perm, const int* seg_start, const int* grp_perm,
-                                   const int* grp_start, const int* grp_chunk_start,
+// float32 tables, int32 id columns, all contiguous on device `device`;
+// rank_start (P + 1) and the camera layout (seg_perm (O), seg_start and
+// chunk_start (C + 1), arrivals (C), at most cam_chunks chunks) from
+// ObsLayout.  refine_mask (host, 7 floats) selects refine mode; it then
+// also takes the group layout (grp_perm (O), grp_start and grp_chunk_start
+// (G + 1), grp_arrivals (G), at most grp_chunks chunks), grpred (G, 35) and
+// wgT (21, O) of W's type; all null otherwise.  Chunks hold chunk_rows rows;
+// part is scratch for (cam_chunks, 28 or 70) and then (grp_chunks, 35)
+// floats.  w_bf16 selects W's storage type; wseg, when not null, gets W in
+// camera order too (18, O).  Launches every pass on `stream` and returns
+// the CUDA error code of the launches (0 = success).
+extern "C" int tpusfm_ba_linearize(int device, const float* camtab, const float* grptab,
+                                   const float* pts, const int* obs_cam, const int* obs_grp,
+                                   const int* ranks, const float* uvT, const float* obs_w,
+                                   const int* rank_start, const int* seg_perm,
+                                   const int* seg_start, const int* chunk_start, int* arrivals,
+                                   const int* grp_perm, const int* grp_start,
+                                   const int* grp_chunk_start, int* grp_arrivals,
                                    const float* refine_mask, int C, int G, int P, int O,
-                                   int n_chunks, int chunk_rows, float huber_delta, int w_bf16,
-                                   float* camred, float* ptred, void* wcT, float* grpred,
-                                   void* wgT, float* part, cudaStream_t stream) {
-  if (C <= 0 || G <= 0 || P <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
-  const bool refine = refine_mask != nullptr;
-  if (refine && (!grp_perm || !grp_start || !grp_chunk_start || !grpred || !wgT || !part ||
-                 n_chunks <= 0 || chunk_rows <= 0))
+                                   int cam_chunks, int grp_chunks, int chunk_rows,
+                                   float huber_delta, int w_bf16, float* camred, float* ptred,
+                                   void* wcT, void* wseg, float* grpred, void* wgT, float* part,
+                                   cudaStream_t stream) {
+  if (C <= 0 || G <= 0 || P <= 0 || O <= 0 || cam_chunks < C || chunk_rows <= 0)
     return (int)cudaErrorInvalidValue;
+  const bool refine = refine_mask != nullptr;
+  if (refine && (!grp_perm || !grp_start || !grp_chunk_start || !grp_arrivals || !grpred ||
+                 !wgT || grp_chunks < G))
+    return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   Tables t{camtab, grptab, pts, obs_cam, obs_grp, ranks, uvT, obs_w, C, G, P, O, huber_delta, {}};
   for (int e = 0; e < 7; ++e) t.mask.m[e] = refine ? refine_mask[e] : 0.f;
-  const GroupArgs g{grp_perm, grp_start, grp_chunk_start, n_chunks, chunk_rows, grpred, wgT, part};
+  const SegArgs cams{seg_perm, seg_start, chunk_start, arrivals, cam_chunks};
+  const SegArgs grps{grp_perm, grp_start, grp_chunk_start, grp_arrivals, grp_chunks};
   if (refine)
-    return w_bf16 ? launch<__nv_bfloat16, true>(t, rank_start, seg_perm, seg_start, g, camred,
-                                                ptred, wcT, stream)
-                  : launch<float, true>(t, rank_start, seg_perm, seg_start, g, camred, ptred, wcT,
-                                        stream);
-  return w_bf16 ? launch<__nv_bfloat16, false>(t, rank_start, seg_perm, seg_start, g, camred,
-                                               ptred, wcT, stream)
-                : launch<float, false>(t, rank_start, seg_perm, seg_start, g, camred, ptred, wcT,
-                                       stream);
+    return w_bf16 ? launch<__nv_bfloat16, true>(t, rank_start, cams, grps, chunk_rows, camred,
+                                                ptred, wcT, wseg, grpred, wgT, part, stream)
+                  : launch<float, true>(t, rank_start, cams, grps, chunk_rows, camred, ptred,
+                                        wcT, wseg, grpred, wgT, part, stream);
+  return w_bf16 ? launch<__nv_bfloat16, false>(t, rank_start, cams, grps, chunk_rows, camred,
+                                               ptred, wcT, wseg, grpred, wgT, part, stream)
+                : launch<float, false>(t, rank_start, cams, grps, chunk_rows, camred, ptred, wcT,
+                                       wseg, grpred, wgT, part, stream);
 }
 
 // K2's unreduced mode (ops/obs_table.py linearize_radial3_t): the inputs

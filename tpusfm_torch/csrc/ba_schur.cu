@@ -26,8 +26,15 @@
 //
 // The camera side is where W's lane-major layout costs: a camera's rows are
 // scattered over the table, and reading W through the camera permutation
-// costs up to 3D separate 32-byte sectors a row instead of 6D bytes.  K4
-// still does that (segment_wz).  K3 does not: its rank pass, which reads
+// costs up to 3D separate 32-byte sectors a row instead of 6D bytes, and
+// the rank one more.  K4 avoids it when the caller gives it W in segment
+// order (column i is row seg_perm[i], lane-major or row-major) with the
+// layout's seg_ranks = ranks[seg_perm]: a chunk then reads W, the ranks
+// and z[rank] (rank-sorted within a segment) contiguously.  K2's camera
+// pass writes that copy of Wc, K8 gathers it on the unfused path, and a
+// one-group table needs none: its permutation is the identity.  Without
+// it K4 reads through the permutation as before.  K3 avoids it too: its
+// rank pass, which reads
 // each rank's W rows side by side anyway, goes on to write wz_o = W_o z_r
 // for the rank's rows into a row-major (O, 6) float32 scratch (each lane
 // keeps its first row's W block in registers meanwhile, so a rank of at
@@ -42,14 +49,16 @@
 // carry over: tables are indexed directly, so ranks need not be dense, and
 // rows with rank >= P contribute nothing.
 //
-// Determinism: no atomics.  The rank passes' lanes each sum their rows in
-// order and the warp adds the 32 partial sums with a fixed shuffle tree.
-// The camera sums (K3's camera pass, K4) are two-level over fixed chunks of
-// a segment's rows (ba_common.cuh): an intrinsic group, or camera 0 with the
-// engine's padding, may hold most of the table.  A chunk's block gives
-// thread t its rows t, t + 256, ... in order, then sums the threads with a
-// fixed shuffle tree, and a second pass adds each segment's chunks in
-// order.  Two calls on the same inputs give the same bits.
+// Determinism: no float atomics.  The rank passes' lanes each sum their
+// rows in order and the warp adds the 32 partial sums with a fixed shuffle
+// tree.  The camera sums (K3's camera pass, K4) are two-level over fixed
+// chunks of a segment's rows (ba_common.cuh): an intrinsic group, or
+// camera 0 with the engine's padding, may hold most of the table.  A
+// chunk's block gives thread t its rows t, t + 256, ... in order, then sums
+// the threads with a fixed shuffle tree; K3's third launch adds each
+// segment's chunks in order, and K4's last chunk block of a segment does
+// (an int32 arrival counter picks that block; the float order is the chunk
+// order).  Two calls on the same inputs give the same bits.
 
 #include "ba_common.cuh"
 
@@ -119,29 +128,6 @@ schur_fwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ids,
   }
 }
 
-// Thread-local sum of W_o z[rank_o] over the permuted rows [begin, end)
-// this thread takes (begin + threadIdx.x, then every kThreads).
-template <typename WT, int D>
-__device__ __forceinline__ void segment_wz(const WT* __restrict__ wT, const int* __restrict__ ranks,
-                                           const float* __restrict__ ztab, int Pz,
-                                           const int* __restrict__ seg_perm, int O, int begin,
-                                           int end, float (&acc)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int i = begin + threadIdx.x; i < end; i += kThreads) {
-    const int o = seg_perm[i];
-    const int r = ranks[o];
-    if (r < 0 || r >= Pz) continue;
-    const float z0 = ztab[(size_t)r * 3], z1 = ztab[(size_t)r * 3 + 1],
-                z2 = ztab[(size_t)r * 3 + 2];
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      acc[d] += load_w(wT, (size_t)(d * 3) * O + o) * z0 +
-                load_w(wT, (size_t)(d * 3 + 1) * O + o) * z1 +
-                load_w(wT, (size_t)(d * 3 + 2) * O + o) * z2;
-  }
-}
-
 // One observation's (6, 3) W block, from column o of the (18, O) table.
 template <typename WT>
 __device__ __forceinline__ void load_w6x3(const WT* __restrict__ wT, int O, int o,
@@ -169,7 +155,7 @@ __device__ __forceinline__ void add_wtv(const float (&w)[18], int c,
   a[2] += t2;
 }
 
-// Row o of the (O, 6) scratch wz: W_o z (segment_wz's arithmetic per row).
+// Row o of the (O, 6) scratch wz: W_o z.
 __device__ __forceinline__ void store_wz(const float (&w)[18], const float (&z)[3],
                                          float* __restrict__ wz, int o) {
   float v[6];
@@ -305,33 +291,83 @@ schur_camera_finish_kernel(const float* __restrict__ part, const int* __restrict
   out[i] = s;
 }
 
-// K4 pass 1: one block per chunk of a segment's rows writes the chunk's
-// sum of W_o z[rank_o] (D values).
-template <typename WT, int D>
+// How K4 reaches the W column and rank of the i-th row of a segment order:
+// through the permutation (column seg_perm[i] of the lane-major table and
+// ranks[seg_perm[i]]), or in order (column i and ranks[i] of a table and a
+// rank column already in segment order), lane-major (3D, O) or row-major
+// (O, 3D).
+enum WRead { kPermuted = 0, kOrderedLane = 1, kOrderedRow = 2 };
+
+// K4's rows in flight per thread.
+constexpr int kBwdRowsInFlight = 2;
+
+// K4: one block per chunk of a segment's rows sums W_o z[rank_o] (D
+// values) and the chunk's last block to arrive adds the segment's chunks
+// (finish_chunk).  Thread t takes the chunk's rows t, t + kThreads, ... in
+// order, kBwdRowsInFlight at a time, whichever way it reaches them, so the
+// permuted and the ordered reads of one table give the same bits.
+template <typename WT, int D, int kRead>
 __global__ void __launch_bounds__(kThreads)
-schur_bwd_chunk_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
-                       const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
-                       const int* __restrict__ seg_start, const int* __restrict__ chunk_start,
-                       int n, int O, int chunk_rows, float* __restrict__ part) {
+schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
+                 const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
+                 const int* __restrict__ seg_start, const int* __restrict__ chunk_start, int n,
+                 int O, int chunk_rows, float* __restrict__ part, int* __restrict__ arrivals,
+                 float* __restrict__ out) {
+  constexpr int U = kBwdRowsInFlight;
   __shared__ float sums[D];
+  zero_empty_segment<D>(chunk_start, n, out);
   ChunkRows ch;
   if (!chunk_rows_of(seg_start, chunk_start, n, chunk_rows, blockIdx.x, ch)) return;
   float acc[D];
-  segment_wz<WT, D>(wT, ranks, ztab, Pz, seg_perm, O, ch.begin, ch.end, acc);
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int i0 = ch.begin + threadIdx.x; i0 < ch.end; i0 += kThreads * U) {
+    int o[U], r[U];
+    float w[U][3 * D];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      o[u] = i >= ch.end ? -1 : kRead == kPermuted ? __ldg(seg_perm + i) : i;
+      r[u] = o[u] < 0 ? -1 : __ldg(ranks + o[u]);
+#pragma unroll
+      for (int k = 0; k < 3 * D; ++k)
+        w[u][k] = o[u] < 0 ? 0.f
+                  : load_w(wT, kRead == kOrderedRow ? (size_t)o[u] * (3 * D) + k
+                                                    : (size_t)k * O + o[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r[u] < 0 || r[u] >= Pz) continue;
+      const float* zr = ztab + (size_t)r[u] * 3;
+      const float z0 = __ldg(zr), z1 = __ldg(zr + 1), z2 = __ldg(zr + 2);
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        acc[d] += w[u][d * 3] * z0 + w[u][d * 3 + 1] * z1 + w[u][d * 3 + 2] * z2;
+    }
+  }
   block_sum<D>(acc, sums);
-  if (threadIdx.x < D) part[(size_t)blockIdx.x * D + threadIdx.x] = sums[threadIdx.x];
+  finish_chunk<D>(sums, chunk_start, ch.seg, blockIdx.x, part, arrivals, out);
 }
 
 template <typename WT, int D>
-int launch_bwd_d(const void* wT, const int* ranks, const float* ztab, int Pz,
+int launch_bwd_d(int read, const void* wT, const int* ranks, const float* ztab, int Pz,
                  const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
-                 int n_chunks, int chunk_rows, float* part, float* out, cudaStream_t stream) {
-  schur_bwd_chunk_kernel<WT, D><<<n_chunks, kThreads, 0, stream>>>(
-      static_cast<const WT*>(wT), ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O,
-      chunk_rows, part);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_chunk_finish(part, chunk_start, n, D, out, stream);
+                 int n_chunks, int chunk_rows, float* part, int* arrivals, float* out,
+                 cudaStream_t stream) {
+  const WT* w = static_cast<const WT*>(wT);
+  if (read == kPermuted)
+    schur_bwd_kernel<WT, D, kPermuted><<<n_chunks, kThreads, 0, stream>>>(
+        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
+        out);
+  else if (read == kOrderedLane)
+    schur_bwd_kernel<WT, D, kOrderedLane><<<n_chunks, kThreads, 0, stream>>>(
+        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
+        out);
+  else
+    schur_bwd_kernel<WT, D, kOrderedRow><<<n_chunks, kThreads, 0, stream>>>(
+        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
+        out);
+  return (int)cudaGetLastError();
 }
 
 template <typename WT, int D>
@@ -346,14 +382,15 @@ int launch_fwd_d(const void* wT, const int* ids, const float* vtab, int n, const
   CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8) CALL(9)
 
 template <typename WT>
-int launch_bwd(int D, const void* wT, const int* ranks, const float* ztab, int Pz,
+int launch_bwd(int D, int read, const void* wT, const int* ranks, const float* ztab, int Pz,
                const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
-               int n_chunks, int chunk_rows, float* part, float* out, cudaStream_t stream) {
+               int n_chunks, int chunk_rows, float* part, int* arrivals, float* out,
+               cudaStream_t stream) {
   switch (D) {
-#define TPUSFM_BWD_CASE(DD)                                                                    \
-  case DD:                                                                                    \
-    return launch_bwd_d<WT, DD>(wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, \
-                                n_chunks, chunk_rows, part, out, stream);
+#define TPUSFM_BWD_CASE(DD)                                                                   \
+  case DD:                                                                                   \
+    return launch_bwd_d<WT, DD>(read, wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, \
+                                n, O, n_chunks, chunk_rows, part, arrivals, out, stream);
     TPUSFM_D_CASES(TPUSFM_BWD_CASE)
 #undef TPUSFM_BWD_CASE
     default:
@@ -428,23 +465,32 @@ extern "C" int tpusfm_ba_schur_mv(int device, const void* wT, int w_bf16, const 
                                    stream);
 }
 
-// K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ranks (O) int32 into
-// ztab (Pz, 3) f32; seg_perm (O), seg_start and chunk_start (n + 1) from
+// K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 9 and ranks (O) int32 into
+// ztab (Pz, 3) f32, read as `read` says (WRead): kPermuted, wT lane-major
+// and ranks in table order, reached through seg_perm; kOrderedLane and
+// kOrderedRow, wT lane-major (3D, O) or row-major (O, 3D) and ranks both
+// already in segment order (column i is row seg_perm[i]).  seg_perm (O),
+// seg_start and chunk_start (n + 1) and arrivals (n, zero, left zero) from
 // ObsLayout, at most n_chunks chunks of chunk_rows rows; part (n_chunks, D)
-// scratch.  Writes out (n, D) and returns the CUDA error code of the
-// launches.
-extern "C" int tpusfm_ba_schur_bwd(const void* wT, int w_bf16, int D, const int* ranks,
-                                   const float* ztab, int Pz, const int* seg_perm,
-                                   const int* seg_start, const int* chunk_start, int n, int O,
+// scratch.  Writes out (n, D) on device `device` and returns the CUDA error
+// code of the launch.
+extern "C" int tpusfm_ba_schur_bwd(int device, const void* wT, int w_bf16, int read, int D,
+                                   const int* ranks, const float* ztab, int Pz,
+                                   const int* seg_perm, const int* seg_start,
+                                   const int* chunk_start, int* arrivals, int n, int O,
                                    int n_chunks, int chunk_rows, float* part, float* out,
                                    cudaStream_t stream) {
-  if (n <= 0 || O <= 0 || Pz < 0 || n_chunks <= 0 || chunk_rows <= 0 || D < 1 || D > kMaxD)
+  if (n <= 0 || O <= 0 || Pz < 0 || n_chunks < n || chunk_rows <= 0 || D < 1 || D > kMaxD ||
+      read < kPermuted || read > kOrderedRow)
     return (int)cudaErrorInvalidValue;
-  return w_bf16 ? launch_bwd<__nv_bfloat16>(D, wT, ranks, ztab, Pz, seg_perm, seg_start,
-                                            chunk_start, n, O, n_chunks, chunk_rows, part, out,
-                                            stream)
-                : launch_bwd<float>(D, wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n,
-                                    O, n_chunks, chunk_rows, part, out, stream);
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return w_bf16 ? launch_bwd<__nv_bfloat16>(D, read, wT, ranks, ztab, Pz, seg_perm, seg_start,
+                                            chunk_start, n, O, n_chunks, chunk_rows, part,
+                                            arrivals, out, stream)
+                : launch_bwd<float>(D, read, wT, ranks, ztab, Pz, seg_perm, seg_start,
+                                    chunk_start, n, O, n_chunks, chunk_rows, part, arrivals, out,
+                                    stream);
 }
 
 // K5.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ids (O) int32 into vtab

@@ -91,13 +91,13 @@ def kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tpusfm_topk2_match.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.tpusfm_topk2_match.restype = ci
-        lib.tpusfm_ba_linearize.argtypes = ([vp] * 15 + [ci] * 6 + [ctypes.c_float, ci]
-                                            + [vp] * 7)
+        lib.tpusfm_ba_linearize.argtypes = ([ci] + [vp] * 18 + [ci] * 7 + [ctypes.c_float, ci]
+                                            + [vp] * 8)
         lib.tpusfm_ba_linearize.restype = ci
         lib.tpusfm_ba_schur_mv.argtypes = [ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp] * 5
         lib.tpusfm_ba_schur_mv.restype = ci
-        lib.tpusfm_ba_schur_bwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci,
-                                            vp, vp, vp]
+        lib.tpusfm_ba_schur_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci,
+                                            ci, ci, ci, vp, vp, vp]
         lib.tpusfm_ba_schur_bwd.restype = ci
         lib.tpusfm_ba_schur_fwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, vp, vp]
         lib.tpusfm_ba_schur_fwd.restype = ci

@@ -131,11 +131,21 @@ class ObsLayout:
     [0, n) sort past seg_start[n].  chunk_start (n + 1,) int32: segment c
     is cut into chunks of CHUNK_ROWS of its rows, numbered
     [chunk_start[c], chunk_start[c + 1]) over all segments; one block sums
-    one chunk and a second pass adds a segment's chunks in order."""
+    one chunk and the chunks of a segment are then added in order.
+    seg_ranks (O,) int32: the ranks in segment order, ranks[seg_perm] (when
+    built with ranks).  in_seg_order: seg_perm is the identity (one segment
+    holds every row, as one intrinsic group does), so the table's own
+    columns are already in segment order.  arrivals (n,) int32: the
+    per-segment counters of the one-launch chunk finish (csrc/ba_common.cuh),
+    zero, and left zero by every call; two calls on one layout must not run
+    on two streams at once."""
     rank_start: torch.Tensor | None
     seg_perm: torch.Tensor
     seg_start: torch.Tensor
     chunk_start: torch.Tensor
+    seg_ranks: torch.Tensor | None
+    in_seg_order: bool
+    arrivals: torch.Tensor
 
     @property
     def chunk_bound(self) -> int:
@@ -148,22 +158,28 @@ def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
                p: int | None = None) -> ObsLayout:
     """The layout of a table: the rows of each of the n segments of
     `seg_ids` (a stable sort keeps each segment's rows in increasing order)
-    and, when `ranks` (rank-sorted) is given, the row range of each of p
-    ranks."""
+    and, when `ranks` (rank-sorted) is given, the ranks in segment order and,
+    with p, the row range of each of p ranks."""
     i = seg_ids.to(torch.int32)
+    dev = i.device
     key = torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
     key_s, perm = torch.sort(key, stable=True)
-    q = torch.arange(n + 1, dtype=torch.int32, device=i.device)
-    rank_start = None
+    q = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    rank_start = seg_ranks = None
     if ranks is not None:
-        qr = torch.arange(p + 1, dtype=torch.int32, device=i.device)
-        rank_start = torch.searchsorted(ranks.to(torch.int32).contiguous(), qr).to(torch.int32)
+        ranks = ranks.to(torch.int32).contiguous()
+        seg_ranks = ranks[perm]
+        if p is not None:
+            qr = torch.arange(p + 1, dtype=torch.int32, device=dev)
+            rank_start = torch.searchsorted(ranks, qr).to(torch.int32)
     seg_start = torch.searchsorted(key_s, q).to(torch.int32)
     n_chunks = (seg_start[1:] - seg_start[:-1] + CHUNK_ROWS - 1) // CHUNK_ROWS
-    chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=i.device),
+    chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                              torch.cumsum(n_chunks, 0, dtype=torch.int32)])
-    return ObsLayout(rank_start=rank_start, seg_perm=perm.to(torch.int32),
-                     seg_start=seg_start, chunk_start=chunk_start)
+    return ObsLayout(rank_start=rank_start, seg_perm=perm.to(torch.int32), seg_start=seg_start,
+                     chunk_start=chunk_start, seg_ranks=seg_ranks,
+                     in_seg_order=torch.equal(key_s, key),
+                     arrivals=torch.zeros(n, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -322,23 +338,27 @@ def linearize_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ra
 def linearize_reduce_radial3_t_reference(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks,
                                          obs_uvT, obs_w, refine: bool = False,
                                          refine_mask: tuple = (0.0,) * 7,
-                                         huber_delta: float = 4.0, w_dtype: str = "f32"):
+                                         huber_delta: float = 4.0, w_dtype: str = "f32",
+                                         seg_ordered_w: bool = False):
     """Plain twin of K2 in the dtype of `camtab` (float32, or float64 as an
     oracle).  Returns camred (C, 28) [Hcc packed 21 | gc 6 | cost],
     ptred (P, 9) [Hpp packed 6 | gp 3] by rank, wcT (18, O) in w_dtype;
     with `refine`, camred (C, 70) [Hcc 21 | gc 6 | Hcg row-major 42 |
     cost], and also grpred (G, 35) [Hgg packed 28 | gg 7] and wgT (21, O)
-    in w_dtype (reference :1540-1547)."""
+    in w_dtype (reference :1540-1547).  With `seg_ordered_w` one more
+    output follows: wcT in camera order, wcT[:, seg_perm] with seg_perm
+    that of obs_layout(obs_cam, C)."""
     C, G, P = camtab.shape[0], grptab.shape[0], pts_rank.shape[0]
     outs = _linearize_rows(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
                            refine, refine_mask, huber_delta, packed=True)
     wdt = _w_torch_dtype(w_dtype)
-    camred = _segsum_drop(outs[0], obs_cam, C)
-    ptred = _segsum_drop(outs[1], ranks, P)
-    if not refine:
-        return camred, ptred, outs[2].T.to(wdt)
-    return (camred, ptred, outs[2].T.to(wdt), _segsum_drop(outs[3], obs_grp, G),
-            outs[4].T.to(wdt))
+    wcT = outs[2].T.to(wdt)
+    res = (_segsum_drop(outs[0], obs_cam, C), _segsum_drop(outs[1], ranks, P), wcT)
+    if refine:
+        res += (_segsum_drop(outs[3], obs_grp, G), outs[4].T.to(wdt))
+    if seg_ordered_w:
+        res += (wcT[:, obs_layout(obs_cam, C).seg_perm.long()],)
+    return res
 
 
 def _wmat(wT: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -436,8 +456,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def _raw_stream(dev: torch.device) -> int:
     """The cudaStream_t of `dev`'s current stream, for the launchers that
-    take their device and set it themselves (K3, K8, K9): no Stream object
-    and no Python device guard around the call."""
+    take their device and set it themselves (K2, K3, K4, K8, K9): no Stream
+    object and no Python device guard around the call."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
@@ -457,7 +477,8 @@ def _layout_for(layout, seg_ids, n, ranks, p, need_ranks: bool,
         _check_shape("layout.seg_perm", layout.seg_perm, (seg_ids.shape[0],))
         _check_shape("layout.seg_start", layout.seg_start, (n + 1,))
         _check_shape("layout.chunk_start", layout.chunk_start, (n + 1,))
-        parts += (layout.seg_perm, layout.seg_start, layout.chunk_start)
+        _check_shape("layout.arrivals", layout.arrivals, (n,))
+        parts += (layout.seg_perm, layout.seg_start, layout.chunk_start, layout.arrivals)
     if need_ranks:
         if layout.rank_start is None:
             raise ValueError("layout has no rank_start; build it with ranks and p")
@@ -499,22 +520,25 @@ def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks
                                obs_w, refine: bool = False, refine_mask: tuple = (0.0,) * 7,
                                huber_delta: float = 4.0, w_dtype: str = "f32", *,
                                layout: ObsLayout | None = None,
-                               grp_layout: ObsLayout | None = None):
+                               grp_layout: ObsLayout | None = None,
+                               seg_ordered_w: bool = False):
     """K2: fused linearize + reduce over a rank-sorted observation table.
 
     camtab (C, 21) [t | R | Jr], grptab (G, 7) RADIAL3 intrinsics,
     pts_rank (P, 3) points by rank, obs_cam / obs_grp / ranks (O,),
     obs_uvT (2, O), obs_w (O,) -> (camred (C, 28), ptred (P, 9),
     wcT (18, O) in w_dtype), or with `refine` (camred (C, 70), ptred,
-    wcT, grpred (G, 35), wgT (21, O)); see the twin.  `layout` (camera
-    segments of obs_cam, rank ranges for P) and, with `refine`,
-    `grp_layout` (group segments of obs_grp) save rebuilding them per
-    call."""
+    wcT, grpred (G, 35), wgT (21, O)); see the twin.  With `seg_ordered_w`
+    one more output follows: wcT in the camera order of `layout`
+    (wcT[:, layout.seg_perm]), which schur_bwd_t reads as `w_seg`.
+    `layout` (camera segments of obs_cam, rank ranges for P) and, with
+    `refine`, `grp_layout` (group segments of obs_grp) save rebuilding them
+    per call."""
     if not _dispatch("linearize_reduce_radial3_t", camtab, grptab, pts_rank, obs_cam, obs_grp,
                      ranks, obs_uvT, obs_w):
         return linearize_reduce_radial3_t_reference(
             camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine,
-            refine_mask, huber_delta, w_dtype)
+            refine_mask, huber_delta, w_dtype, seg_ordered_w)
     wdt = _w_torch_dtype(w_dtype)
     C, G, P, O = _check_lin_inputs("linearize_reduce_radial3_t", camtab, grptab, pts_rank,
                                    obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine, refine_mask)
@@ -523,35 +547,37 @@ def linearize_reduce_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks
     cam, grp, rk = _i32(obs_cam), _i32(obs_grp), _i32(ranks)
     uvT, w = _f32(obs_uvT), _f32(obs_w)
     dev = camtab.device
-    camred = torch.empty((C, 70 if refine else 28), dtype=torch.float32, device=dev)
+    K = 70 if refine else 28
+    camred = torch.empty((C, K), dtype=torch.float32, device=dev)
     ptred = torch.empty((P, 9), dtype=torch.float32, device=dev)
     wcT = torch.empty((18, O), dtype=wdt, device=dev)
+    wseg = torch.empty((18, O), dtype=wdt, device=dev) if seg_ordered_w else None
+    outs = (camred, ptred, wcT)
+    grp_ptrs, grp_outs, grp_chunks, mask = (None,) * 4, (None, None), 0, None
     if refine:
         glay = _layout_for(grp_layout, obs_grp, G, None, None, need_ranks=False)
-        grpred = torch.empty((G, 35), dtype=torch.float32, device=dev)
-        wgT = torch.empty((21, O), dtype=wdt, device=dev)
-        part = torch.empty((glay.chunk_bound, 35), dtype=torch.float32, device=dev)
+        outs += (torch.empty((G, 35), dtype=torch.float32, device=dev),
+                 torch.empty((21, O), dtype=wdt, device=dev))
         mask = (ctypes.c_float * 7)(*(float(m) for m in refine_mask))
         grp_ptrs = (glay.seg_perm.data_ptr(), glay.seg_start.data_ptr(),
-                    glay.chunk_start.data_ptr(), ctypes.addressof(mask))
-        grp_outs = (grpred.data_ptr(), wgT.data_ptr(), part.data_ptr())
-        n_chunks = glay.chunk_bound
-    else:
-        grp_ptrs, grp_outs, n_chunks = (None,) * 4, (None,) * 3, 0
+                    glay.chunk_start.data_ptr(), glay.arrivals.data_ptr())
+        grp_outs = (outs[3].data_ptr(), outs[4].data_ptr())
+        grp_chunks = glay.chunk_bound
+    # The camera pass's chunk partials, then the group pass's.
+    part = torch.empty((lay.chunk_bound * K + grp_chunks * 35,), dtype=torch.float32, device=dev)
     lib = cuda_build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpusfm_ba_linearize(
-            camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(), grp.data_ptr(),
-            rk.data_ptr(), uvT.data_ptr(), w.data_ptr(), lay.rank_start.data_ptr(),
-            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), *grp_ptrs, C, G, P, O, n_chunks,
-            CHUNK_ROWS, float(huber_delta), int(wdt == torch.bfloat16), camred.data_ptr(),
-            ptred.data_ptr(), wcT.data_ptr(), *grp_outs, stream)
+    err = lib.tpusfm_ba_linearize(
+        dev.index, camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(),
+        grp.data_ptr(), rk.data_ptr(), uvT.data_ptr(), w.data_ptr(), lay.rank_start.data_ptr(),
+        lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(),
+        lay.arrivals.data_ptr(), *grp_ptrs, None if mask is None else ctypes.addressof(mask), C,
+        G, P, O, lay.chunk_bound, grp_chunks, CHUNK_ROWS, float(huber_delta),
+        int(wdt == torch.bfloat16), camred.data_ptr(), ptred.data_ptr(), wcT.data_ptr(),
+        None if wseg is None else wseg.data_ptr(), grp_outs[0], grp_outs[1], part.data_ptr(),
+        _raw_stream(dev))
     cuda_build.check(lib, err, "linearize_reduce_radial3_t launch")
     LAUNCHES["linearize_reduce_radial3_t"] += 1
-    if refine:
-        return camred, ptred, wcT, grpred, wgT
-    return camred, ptred, wcT
+    return outs if wseg is None else outs + (wseg,)
 
 
 def linearize_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_uvT, obs_w,
@@ -652,13 +678,32 @@ def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
     return out, y
 
 
-def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | None = None):
+# How K4 reads W and the ranks (csrc/ba_schur.cu WRead).
+_K4_PERMUTED, _K4_ORDERED_LANE, _K4_ORDERED_ROW = 0, 1, 2
+
+
+def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | None = None,
+                w_seg: torch.Tensor | None = None):
     """K4: out (n, D) = sum over observations o with obs_cam_o = n of
     W_o z[rank_o]; wT (3D, O) bf16/f32 with D <= 9, idx_sorted (O,) ranks
     into ztab (Pz, 3).  obs_cam may be any id column (camera or group) whose
-    segment layout `layout` describes."""
-    if not _dispatch("schur_bwd_t", wT, obs_cam, idx_sorted, ztab):
-        return schur_bwd_t_reference(wT, obs_cam, idx_sorted, ztab, n)
+    segment layout `layout` describes.
+
+    `w_seg` (3D, O), optional: the same W in the segment order of `layout`
+    (column i is column layout.seg_perm[i] of wT), lane-major or the (3D, O)
+    view of a row-major (O, 3D) table (segsum_lane_major), bf16 or f32; the
+    layout must carry seg_ranks.  With it, or when the layout's rows are in
+    segment order already (in_seg_order), the kernel reads W and the ranks
+    in order instead of through the permutation; both reads give the same
+    bits."""
+    if w_seg is not None and (layout is None or layout.seg_ranks is None):
+        raise ValueError("schur_bwd_t: w_seg needs the layout it is ordered by, built with ranks")
+    if not _dispatch("schur_bwd_t", wT, obs_cam, idx_sorted, ztab,
+                     *(() if w_seg is None else (w_seg,))):
+        if w_seg is None:
+            return schur_bwd_t_reference(wT, obs_cam, idx_sorted, ztab, n)
+        return schur_bwd_t_reference(w_seg, obs_cam[layout.seg_perm.long()], layout.seg_ranks,
+                                     ztab, n)
     O = idx_sorted.shape[0]
     _check_w("schur_bwd_t", wT, O)
     D = wT.shape[0] // 3
@@ -671,16 +716,25 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
     if min(n, O) < 1:
         raise ValueError("schur_bwd_t needs at least one segment and one observation")
     lay = _layout_for(layout, obs_cam, n, None, None, need_ranks=False)
-    rk, z = _i32(idx_sorted), _f32(ztab)
+    z = _f32(ztab)
+    if w_seg is not None:
+        _check_shape("w_seg", w_seg, tuple(wT.shape))
+        _check_shape("layout.seg_ranks", lay.seg_ranks, (O,))
+        if w_seg.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"schur_bwd_t: w_seg must be bfloat16 or float32, got {w_seg.dtype}")
+        read = _K4_ORDERED_LANE if segsum_lane_major(w_seg, "schur_bwd_t") else _K4_ORDERED_ROW
+        w, rk = w_seg, _i32(lay.seg_ranks)
+    else:
+        read = _K4_ORDERED_LANE if lay.in_seg_order else _K4_PERMUTED
+        w, rk = wT, _i32(idx_sorted)
     out = torch.empty((n, D), dtype=torch.float32, device=z.device)
     part = torch.empty((lay.chunk_bound, D), dtype=torch.float32, device=z.device)
     lib = cuda_build.kernels()
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.tpusfm_ba_schur_bwd(
-            wT.data_ptr(), int(wT.dtype == torch.bfloat16), D, rk.data_ptr(), z.data_ptr(), Pz,
-            lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), n, O,
-            lay.chunk_bound, CHUNK_ROWS, part.data_ptr(), out.data_ptr(), stream)
+    err = lib.tpusfm_ba_schur_bwd(
+        z.device.index, w.data_ptr(), int(w.dtype == torch.bfloat16), read, D, rk.data_ptr(),
+        z.data_ptr(), Pz, lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(),
+        lay.chunk_start.data_ptr(), lay.arrivals.data_ptr(), n, O, lay.chunk_bound, CHUNK_ROWS,
+        part.data_ptr(), out.data_ptr(), _raw_stream(z.device))
     cuda_build.check(lib, err, "schur_bwd_t launch")
     LAUNCHES["schur_bwd_t"] += 1
     return out
@@ -724,17 +778,18 @@ def _check_vals(name: str, valsT: torch.Tensor, o: int):
         raise ValueError(f"{name}: valsT must be (k, {o}) with k >= 1, got {tuple(valsT.shape)}")
 
 
-def segsum_lane_major(valsT: torch.Tensor) -> bool:
-    """How K6 reads a (k, O) table: False for row-major storage, the (k, O)
-    view with strides (1, k) of an (O, k) table (`x.T` of a contiguous x),
-    which it reads in place; True for a contiguous lane-major table, which
-    it first transposes into a row-major scratch.  Other strides raise."""
+def segsum_lane_major(valsT: torch.Tensor, name: str = "segsum_table_t") -> bool:
+    """How K6 (and K4, its segment-ordered W) reads a (k, O) table: False
+    for row-major storage, the (k, O) view with strides (1, k) of an (O, k)
+    table (`x.T` of a contiguous x), which it reads in place; True for a
+    contiguous lane-major table (which K6 first transposes into a row-major
+    scratch).  Other strides raise."""
     k, o = valsT.shape
     if (k == 1 or valsT.stride(0) == 1) and (o == 1 or valsT.stride(1) == k):
         return False
     if valsT.is_contiguous():
         return True
-    raise ValueError(f"segsum_table_t: valsT must be a contiguous (k, O) table or the (k, O) "
+    raise ValueError(f"{name}: the table must be a contiguous (k, O) table or the (k, O) "
                      f"view of a contiguous (O, k) one, got strides {valsT.stride()}")
 
 

@@ -24,6 +24,16 @@ is random bf16.
 
 Part 3 profiles the 500-camera kernel-path solve forced to 20 LM
 iterations: its device kernel time by kernel and its busy share.
+
+Part 4 gives the device time of each pass of K2 (rank, camera, group and
+chunk finish; rows outside every rank are written by extra blocks of the
+rank pass's launch) and of K4 (chunk sums and finish), as part 2 does, at
+the 200-view shape (K2 held and refine, K4 at D = 6 on the cameras and
+D = 7 on one group) and at the 500-camera shape (K2 held, K4 at D = 6 on
+the cameras and D = 9 on one group), with the calls the BA path makes.
+Where the layout carries `seg_ranks`, K4 on the cameras is also timed on a
+segment-ordered W (lane-major and row-major) and K2 with that copy
+written.  ``--parts 4`` runs this part alone.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
+
+import numpy as np
 
 
 def _host_us(fn, reps: int, batches: int = 7) -> float:
@@ -129,22 +141,47 @@ def _pad_engine_table(prob: dict, O: int) -> tuple:
     return cam, ranks, pad
 
 
-def k3_passes(runs: int = 10) -> None:
-    """Part 2: K3's three passes at two shapes."""
+def _shapes():
+    """(label, problem, rows after padding or None) of parts 2 and 4."""
+    from ..utils.synth_scene import point_sorted_ba_problem
+
+    return (("200-view final BA (padded to 32,768 rows)",
+             point_sorted_ba_problem(200, 2048, seed=2, arc_deg=120.0, vis_prob=0.06), 32768),
+            ("500-camera bench problem",
+             point_sorted_ba_problem(500, 50000, seed=3, arc_deg=350.0, vis_prob=0.06), None))
+
+
+def _passes(label: str, fn, runs: int) -> None:
+    """Prints torch.profiler's device time of each kernel of `fn` (mean
+    over the recorded launches of `runs` calls, after two warm-ups) and
+    their sum per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..ops import obs_table as ot
-    from ..utils.synth_scene import point_sorted_ba_problem
     from .profile_rung import _device_kernels
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof)
+    print(f"{label}: device {sum(us / n for _, n, us in rows):.2f} us per call")
+    for name, n, us in rows:
+        print(f"  {us / n:8.2f} us ({n} records)  {name[:90]}")
+
+
+def k3_passes(runs: int = 10) -> None:
+    """Part 2: K3's three passes at two shapes."""
+    import torch
+
+    from ..ops import obs_table as ot
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(1)
-    shapes = (("200-view final BA (padded to 32,768 rows)",
-               point_sorted_ba_problem(200, 2048, seed=2, arc_deg=120.0, vis_prob=0.06), 32768),
-              ("500-camera bench problem",
-               point_sorted_ba_problem(500, 50000, seed=3, arc_deg=350.0, vis_prob=0.06), None))
-    for label, prob, O in shapes:
+    for label, prob, O in _shapes():
         cam, ranks, pad = _pad_engine_table(prob, O or len(prob["obs_cam"]))
         cam, ranks = cam.to(dev), ranks.to(dev)
         O, C, P = cam.shape[0], prob["intr"].shape[0], prob["points"].shape[0]
@@ -157,19 +194,60 @@ def k3_passes(runs: int = 10) -> None:
         def call():
             return ot.schur_mv_t(W, cam, ranks, v, hinv, P, hcc_d=hcc, layout=lay)
 
-        call()
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                call()
-            torch.cuda.synchronize()
-        rows = _device_kernels(prof)
-        print(f"K3 at {label}: C={C} P={P} O={O}, {pad} padding rows on camera 0, "
-              f"{int(lay.chunk_start[-1])} chunks (bound {lay.chunk_bound}): device "
-              f"{sum(us / n for _, n, us in rows):.2f} us per call")
-        for name, n, us in rows:
-            print(f"  {us / n:8.2f} us ({n} records)  {name[:70]}")
+        _passes(f"K3 at {label}: C={C} P={P} O={O}, {pad} padding rows on camera 0, "
+                f"{int(lay.chunk_start[-1])} chunks (bound {lay.chunk_bound})", call, runs)
+
+
+def k2_k4_passes(runs: int = 10) -> None:
+    """Part 4: K2's and K4's passes at the 200-view and 500-camera shapes."""
+    import torch
+
+    from ..ba import bundle_adjust as tba
+    from ..ops import obs_table as ot
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, prob, O in _shapes():
+        cam, ranks, pad = _pad_engine_table(prob, O or len(prob["obs_cam"]))
+        cam, ranks = cam.to(dev), ranks.to(dev)
+        O, C, P = cam.shape[0], prob["intr"].shape[0], prob["points"].shape[0]
+        uv = torch.cat([torch.as_tensor(prob["obs_uv"]), torch.zeros((pad, 2))]).to(dev)
+        w = torch.cat([torch.ones(O - pad), torch.zeros(pad)]).to(dev)
+        ps = torch.as_tensor(np.concatenate([prob["cam_rot"], prob["cam_t"]], 1), device=dev)
+        intr, pts = torch.as_tensor(prob["intr"], device=dev), torch.as_tensor(
+            prob["points"], device=dev)
+        grp = torch.zeros_like(cam)
+        lay, glay = ot.obs_layout(cam, C, ranks, P), ot.obs_layout(grp, 1, ranks, P)
+        seg = hasattr(lay, "seg_ranks")
+        a2 = (tba.camera_table(ps), intr, pts, cam, cam, ranks, uv.T.contiguous(), w)
+        held = dict(w_dtype="bf16", layout=lay)
+        head = f"at {label}: C={C} P={P} O={O}, {pad} padding rows on camera 0"
+        k2 = [("K2 held", held)]
+        if seg:
+            k2.append(("K2 held, segment-ordered W written", dict(held, seg_ordered_w=True)))
+        if O <= 32768:
+            refine = dict(held, refine=True, refine_mask=(1.0,) * 7, grp_layout=glay)
+            k2.append(("K2 refine, one group", dict(refine, seg_ordered_w=True) if seg
+                       else refine))
+        for name, kw in k2:
+            args = a2 if not kw.get("refine") else a2[:1] + (intr[:1],) + a2[2:4] + (grp,) + a2[5:]
+            _passes(f"{name} {head}", lambda: ot.linearize_reduce_radial3_t(*args, **kw), runs)
+        z = torch.randn((P, 3), generator=gen, device=dev)
+        Wc = torch.randn((18, O), generator=gen, device=dev).to(torch.bfloat16)
+        d_grp = 7 if O <= 32768 else 9
+        Wg = torch.randn((3 * d_grp, O), generator=gen, device=dev).to(torch.bfloat16)
+        k4 = [("K4 D=6, cameras", lambda: ot.schur_bwd_t(Wc, cam, ranks, z, C, layout=lay)),
+              (f"K4 D={d_grp}, one group",
+               lambda: ot.schur_bwd_t(Wg, grp, ranks, z, 1, layout=glay))]
+        if seg:
+            perm = lay.seg_perm.long()
+            lane, row = Wc[:, perm].contiguous(), Wc.T[perm].contiguous().T
+            k4 += [("K4 D=6, cameras, segment-ordered W lane-major",
+                    lambda: ot.schur_bwd_t(Wc, cam, ranks, z, C, layout=lay, w_seg=lane)),
+                   ("K4 D=6, cameras, segment-ordered W row-major",
+                    lambda: ot.schur_bwd_t(Wc, cam, ranks, z, C, layout=lay, w_seg=row))]
+        for name, fn in k4:
+            _passes(f"{name} {head}", fn, runs)
 
 
 def forced_solve_busy_share() -> None:
@@ -216,13 +294,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=500)
+    ap.add_argument("--parts", type=int, nargs="+", default=[1, 2, 3, 4])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("launch_probe: no CUDA device visible to torch")
     print(torch.cuda.get_device_name(0))
-    host_steps(32768, args.reps)
-    k3_passes()
-    forced_solve_busy_share()
+    parts = {1: lambda: host_steps(32768, args.reps), 2: k3_passes, 3: forced_solve_busy_share,
+             4: k2_k4_passes}
+    for part in args.parts:
+        parts[part]()
     return 0
 
 
