@@ -7,16 +7,25 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 1. device: requires CUDA; prints the card's name and power limit, the torch,
    CUDA and nvcc versions; turns TF32 off for matmuls and convolutions;
 2. build: compiles the port's CUDA kernels from tpusfm_torch/csrc with nvcc
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), and prints the first
+   tensor-core instruction (HGMMA) of K1's bf16 kernel from cuobjdump
+   -sass of the built library (none is a failure);
 3. kernel K1 (fused top-2 matcher) against its plain PyTorch twin on the
-   card: bit-equal on SIFT's u8 grid at the 20-view path's chunk (192 pairs
-   x 1024 x 1024 x 128) and at 32 pairs, at non-multiple shapes, with a
-   fully masked B; the ratio-test/cross-check `ok` equal on random float
-   descriptors; median times (CUDA events, 2 warm-ups, 10 runs);
+   card, both variants: the bf16 tensor-core kernel (quantized=True, the
+   main path's) bit-equal to its twin and to the f32 kernel on SIFT's u8
+   grid at the 20-view path's chunk (192 pairs x 1024 x 1024 x 128) and at
+   32 pairs, at non-multiple shapes, with a fully masked B, the same bits
+   on a repeat call; on off-grid float descriptors within 1e-5 x (|a|^2 +
+   max |b|^2) of its twin (i1 equal where d2 - d1 exceeds that); the f32
+   kernel bit-equal to its twin and its ratio-test/cross-check `ok` equal
+   on float descriptors; median times (CUDA events, 2 warm-ups, 10 runs) of
+   both variants, their twins and, as a yardstick, torch.bmm on bf16 copies
+   (the product only, not the function);
 4. the 20-view slice: run_sparse on cuda over the 20-view 480x640 rendered
    orbit scene with the reference bench's config, once; asserts >= 19/20
    views, ATE <= 0.05 (scene radius 8), > 1000 points, finite geometry,
-   and K1 launches (counts reset just before the run, read just after);
+   and that K1 launched, its bf16 variant only (counts reset just before
+   the run, read just after; every 200-view run below asserts the same);
 5. the 200-view slice: run_sparse once over the reference's medium rung
    (200 views 240x320, contiguous pairs, bench.py:383-389) with the
    intrinsics held; asserts >= 190/200 views, ATE <= 0.10, > 1000 points,
@@ -35,9 +44,12 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    BAConfig fields): the same bars; K8 (poses, intrinsics, Hpp^-1 rows),
    K9 (points by rank), K6, K7, K3 and K4 launched, K2 not; keeps the last
    call of each;
-8. path kernels: K1 bit-equal to its twin at the 200-view chunk, both
-   timed; K2, K3, K4 against their twins evaluated in float64 on the card,
-   at shape (a) and at (b), the reference bench's 500-camera problem
+8. path kernels: K1's bf16 kernel bit-equal to its twin and to the f32
+   kernel at the 200-view run's own chunk (real SIFT descriptors), the same
+   bits on a repeat, within the off-grid tolerance of its twin on the same
+   chunk moved off the grid, all timed; K2, K3, K4 against their twins
+   evaluated in float64 on the card, at shape (a) and at (b), the
+   reference bench's 500-camera problem
    (bench.py:171-202, about 1.5M observations, point-sorted): each within
    4x the float32 twin's own error against float64 (bf16 W within one bf16
    ulp), bit-identical on a repeat call; median ms of kernel and float32
@@ -74,17 +86,20 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
-shape and a second K4 entry at path B's cameras: route, source, the TPU
-kernel it replaces, launches in its main-path run (the 20-view run for K1,
-the held 200-view run for K2-K4, the 500-camera kernel-path solve of phase
+shape, a second K4 entry at path B's cameras and a second K1 entry at the
+200-view chunk: route, source, the TPU kernel it replaces, launches in its
+main-path run (the 20-view run for K1, the held 200-view run for the
+second K1 entry and K2-K4, the 500-camera kernel-path solve of phase
 10 for the second K3 and K2 entries, path A for K5, path B for K6, K7 and
 the second K4 entry, the gather run for K8 and K9, the composition of
 phase 9 for K2 unreduced), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
 device time from torch.profiler (with the kernels of a call printed), the
-least time the card could take (bytes
-at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is larger) and
-what bounds it, and the time of one PyTorch call computing the same
+least time the card could take (bytes at 3.35 TB/s or operations at their
+peak, whichever is larger: K1's bf16 products at 989 TFLOP/s on the
+tensor cores, everything else float32 at 67 TFLOP/s) and what bounds it
+(K1's entries also carry the f32 variant's times and bound and the
+bf16 bmm yardstick), and the time of one PyTorch call computing the same
 function where there is one (index_add_ for K6, K7, index_select for K8,
 K9), by CUDA events and by torch.profiler (library_device_ms), all at the
 kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
@@ -115,10 +130,14 @@ UNREDUCED = "linearize_radial3_t"
 K3_BENCH = "schur_mv_t (500-camera BA)"
 K2_BENCH = "linearize_reduce_radial3_t (500-camera BA)"
 K4_PATH_B = "schur_bwd_t (path B, cameras)"
-# Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and
-# float32 outside the tensor cores, which every kernel here computes in.
+# A second K1 entry at the 200-view run's own chunk, its launches that run's.
+K1_200 = "topk2_match (200-view chunk)"
+# Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory,
+# float32 outside the tensor cores, which every kernel but K1's bf16 one
+# computes in, and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 # Float operations per observation of K2's per-observation math (projection,
 # distortion, Huber weight, closed-form Jacobians: ~290) and products (Hcc,
 # gc, Hpp, gp, W, cost: ~160); refine mode adds Jg and its products (Hcg,
@@ -214,12 +233,20 @@ def phase_device():
 
 
 def phase_build():
+    from pathlib import Path
+
     from tpusfm_torch.ops import cuda_build
 
     t0 = time.time()
     path = cuda_build.build(verbose=True)
     cuda_build.kernels()
     print(f"build: {path.name} in {time.time() - t0:.2f} s")
+    sass = _run([str(Path(cuda_build._nvcc()).with_name("cuobjdump")), "-sass", str(path)])
+    kernel = sass[sass.index("topk2_match_bf16_kernel"):].split("Function :")[0]
+    hgmma = [line.strip() for line in kernel.splitlines() if "HGMMA" in line]
+    if not hgmma:
+        raise AssertionError("K1's bf16 kernel has no tensor-core instruction in its SASS")
+    print(f"K1 bf16 kernel SASS: {len(hgmma)} HGMMA, the first: {hgmma[0]}")
 
 
 def _u8_grid(shape, gen, dev):
@@ -229,7 +256,8 @@ def _u8_grid(shape, gen, dev):
 
 
 def _twin_match(da, db, ma, mb, ratio=0.8):
-    """match_descriptors_topk2 computed with the plain twin (oracle)."""
+    """match_descriptors_topk2 (f32 variant) computed with the plain twin
+    (oracle)."""
     import torch
 
     from tpusfm_torch.ops import topk2_match as k1
@@ -241,6 +269,89 @@ def _twin_match(da, db, ma, mb, ratio=0.8):
     return i1, ok
 
 
+def _k1_equal(da, db, mb, label: str) -> float:
+    """K1's bf16 kernel on u8-grid inputs: bit-equal to its twin, to the f32
+    kernel and to itself on a repeat; the f32 kernel bit-equal to its twin.
+    Returns the bf16 kernel's max abs error against its twin (0)."""
+    import torch
+
+    from tpusfm_torch.ops import topk2_match as k1
+
+    got = _repeat_equal(lambda: k1.match_topk2(da, db, mb, quantized=True), f"K1 bf16 at {label}")
+    f32 = k1.match_topk2(da, db, mb)
+    torch.cuda.synchronize()
+    want = k1.match_topk2_reference(da, db, mb, quantized=True)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    for what, x, y in (("the bf16 kernel and its twin", got, want),
+                       ("the bf16 and f32 kernels", got, f32),
+                       ("the f32 kernel and its twin", f32, k1.match_topk2_reference(da, db, mb))):
+        if not all(torch.equal(g, w) for g, w in zip(x, y)):
+            raise AssertionError(f"K1 at {label}: {what} differ (bf16 max err {err})")
+    print(f"K1 bf16 kernel bit-equal to its twin, to the f32 kernel and on a repeat; f32 kernel "
+          f"bit-equal to its twin: {label}")
+    return err
+
+
+def _k1_off_grid(da, db, mb, label: str) -> float:
+    """K1's bf16 kernel on off-grid float descriptors against its twin, which
+    sums the same bf16 products in another order: d1 and d2 within 1e-5 x
+    (|a|^2 of the rounded row + the largest |b|^2 of the pair), i1 equal
+    wherever d2 - d1 exceeds that.  Returns the largest error in units of
+    that tolerance."""
+    import torch
+
+    from tpusfm_torch.ops import topk2_match as k1
+
+    got = k1.match_topk2(da, db, mb, quantized=True)
+    d1, d2, i1 = k1.match_topk2_reference(da, db, mb, quantized=True)
+    ar = da.to(torch.bfloat16).double()
+    tol = 1e-5 * ((ar * ar).sum(-1) + (db.double() ** 2).sum(-1).amax(-1, keepdim=True))
+    rel = max(float(((g.double() - w.double()).abs() / tol).max()) for g, w in
+              zip(got[:2], (d1, d2)))
+    sep = (d2.double() - d1.double()) > tol
+    if not rel <= 1.0 or not torch.equal(got[2][sep], i1[sep]):
+        raise AssertionError(f"K1 bf16 at {label}, off the grid: error {rel} of the tolerance, "
+                             f"i1 differs on {int((got[2] != i1)[sep].sum())} separated rows")
+    print(f"K1 bf16 kernel within the off-grid tolerance of its twin at {label}: largest error "
+          f"{rel:.3e} of it, i1 equal on {int(sep.sum())}/{sep.numel()} separated rows")
+    return rel
+
+
+def _k1_times(da, db, mb, label: str, card: str) -> dict:
+    """Both K1 variants on one chunk: CUDA-event and profiler times, twins,
+    bounds (bf16 products at the tensor-core rate, f32 ones at the float32
+    rate) and the product alone in torch.bmm on bf16 copies."""
+    import torch
+
+    from tpusfm_torch.ops import topk2_match as k1
+
+    P, na, nb = da.shape[0], da.shape[1], db.shape[1]
+    flops = 2.0 * P * na * nb * 128
+    out = k1.match_topk2(da, db, mb, quantized=True)
+    a16, b16t = da.to(torch.bfloat16), db.to(torch.bfloat16).transpose(1, 2)
+    res = {"ms": _median_ms(lambda: k1.match_topk2(da, db, mb, quantized=True)),
+           "plain_ms": _median_ms(lambda: k1.match_topk2_reference(da, db, mb, quantized=True)),
+           "f32_ms": _median_ms(lambda: k1.match_topk2(da, db, mb)),
+           "f32_plain_ms": _median_ms(lambda: k1.match_topk2_reference(da, db, mb)),
+           "product_only_ms": _median_ms(lambda: torch.bmm(a16, b16t)),
+           "device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb, quantized=True)),
+           "f32_device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb))}
+    res.update(_bound([da, db, mb], list(out), flops, BF16_TENSOR_FLOP_PER_S))
+    f32_bound = _bound([da, db, mb], list(out), flops)
+    res["f32_bound_ms"], res["f32_bound_by"] = f32_bound["bound_ms"], f32_bound["bound_by"]
+    del a16, b16t
+    print(f"K1 bf16 kernel at {label} on {card}: {res['ms']:.4f} ms (device "
+          f"{_dev(res['device_ms'])}, {flops / res['ms'] / 1e9:.1f} TFLOP/s) vs twin "
+          f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    print(f"K1 f32 kernel at {label} on {card}: {res['f32_ms']:.4f} ms (device "
+          f"{_dev(res['f32_device_ms'])}, {flops / res['f32_ms'] / 1e9:.1f} TFLOP/s) vs twin "
+          f"{res['f32_plain_ms']:.4f} ms; bound {res['f32_bound_ms']:.4f} ms "
+          f"({res['f32_bound_by']})")
+    print(f"torch.bmm on bf16 copies at {label}: {res['product_only_ms']:.4f} ms (product only, "
+          f"not the function)")
+    return res
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
@@ -249,54 +360,43 @@ def phase_kernel(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def check_bit_equal(P, na, nb, mask_frac, label):
+    def grid_case(P, na, nb, mask_frac):
         da = _u8_grid((P, na, 128), gen, dev)
         db = _u8_grid((P, nb, 128), gen, dev)
-        mb = torch.rand((P, nb), generator=gen, device=dev) >= mask_frac
-        got = k1.match_topk2(da, db, mb)
-        torch.cuda.synchronize()
-        want = k1.match_topk2_reference(da, db, mb)
-        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"K1 differs from its twin on the u8 grid ({label}): max err {err}")
-        print(f"K1 bit-equal to twin: {label}")
-        return da, db, mb, err
+        return da, db, torch.rand((P, nb), generator=gen, device=dev) >= mask_frac
 
-    da, db, mb, err_main = check_bit_equal(192, 1024, 1024, 0.1, "192 pairs x 1024 x 1024, 10% B masked")
-    da32, db32, mb32, _ = check_bit_equal(32, 1024, 1024, 0.1, "32 pairs x 1024 x 1024, 10% B masked")
-    check_bit_equal(3, 130, 200, 0.1, "3 pairs x 130 x 200")
-    d1 = k1.match_topk2(*check_bit_equal(2, 130, 200, 1.1, "fully masked B")[:3])[0]
-    if not bool((d1 >= 1e38).all()):
-        raise AssertionError("fully masked B must give d1 >= 1e38")
+    main = grid_case(192, 1024, 1024, 0.1)
+    err_main = _k1_equal(*main, "192 pairs x 1024 x 1024, 10% B masked")
+    c32 = grid_case(32, 1024, 1024, 0.1)
+    _k1_equal(*c32, "32 pairs x 1024 x 1024, 10% B masked")
+    _k1_equal(*grid_case(3, 130, 200, 0.1), "3 pairs x 130 x 200")
+    _k1_equal(*grid_case(2, 65, 1, 0.0), "2 pairs x 65 x 1")
+    masked = grid_case(2, 130, 200, 1.1)
+    _k1_equal(*masked, "fully masked B")
+    for quantized in (True, False):
+        if not bool((k1.match_topk2(*masked, quantized=quantized)[0] >= 1e38).all()):
+            raise AssertionError("fully masked B must give d1 >= 1e38")
 
     fa = torch.randn((4, 300, 128), generator=gen, device=dev) * 20
     fb = torch.cat([fa[:, :250] + 0.3 * torch.randn((4, 250, 128), generator=gen, device=dev),
                     torch.randn((4, 210, 128), generator=gen, device=dev) * 20], dim=1)
     fma = torch.ones((4, 300), dtype=torch.bool, device=dev)
     fmb = torch.rand((4, 460), generator=gen, device=dev) > 0.05
+    _k1_off_grid(fa, fb, fmb, "4 pairs x 300 x 460 of float descriptors")
     i_k, ok_k = k1.match_descriptors_topk2(fa, fb, fma, fmb)
     i_t, ok_t = _twin_match(fa, fb, fma, fmb)
     if not torch.equal(ok_k, ok_t) or not torch.equal(i_k[ok_k], i_t[ok_t]):
-        raise AssertionError("K1 ratio test / cross-check differs from the twin on float descriptors")
-    print(f"K1 ok equal to twin on float descriptors ({int(ok_k.sum())} matches)")
+        raise AssertionError("K1 f32 ratio test / cross-check differs from the twin on float "
+                             "descriptors")
+    print(f"K1 f32 kernel's ok equal to twin on float descriptors ({int(ok_k.sum())} matches)")
 
-    ms = _median_ms(lambda: k1.match_topk2(da, db, mb))
-    plain_ms = _median_ms(lambda: k1.match_topk2_reference(da, db, mb))
-    ms32 = _median_ms(lambda: k1.match_topk2(da32, db32, mb32))
-    plain_ms32 = _median_ms(lambda: k1.match_topk2_reference(da32, db32, mb32))
-    flops = 2.0 * 1024 * 1024 * 128
-    print(f"K1 timing on {card}: 192-pair chunk kernel {ms:.4f} ms ({192 * flops / ms / 1e9:.2f} "
-          f"TFLOP/s) vs twin {plain_ms:.4f} ms; 32-pair chunk kernel {ms32:.4f} ms "
-          f"({32 * flops / ms32 / 1e9:.2f} TFLOP/s) vs twin {plain_ms32:.4f} ms")
-    out = k1.match_topk2(da, db, mb)
-    bound = _bound([da, db, mb], list(out), 192 * flops)
-    dev_ms = _device_ms(lambda: k1.match_topk2(da, db, mb))
-    print(f"K1 bound at the 192-pair chunk: {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
-          f"device time {_dev(dev_ms)}")
+    res = _k1_times(*main, "the 192-pair chunk", card)
+    ms32 = _median_ms(lambda: k1.match_topk2(*c32, quantized=True))
+    print(f"K1 bf16 kernel at the 32-pair chunk: {ms32:.4f} ms")
     return {"name": "topk2_match", "route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
             "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
-            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
-            "device_ms": dev_ms, "library_device_ms": None}
+            "max_abs_err": err_main, "library_ms": None, "library_device_ms": None,
+            "variant": "quantized=True (bf16 wgmma)", **res}
 
 
 def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
@@ -323,16 +423,26 @@ def _reset_counts():
     from tpusfm_torch.ops import obs_table as ot
     from tpusfm_torch.ops import topk2_match as k1
 
-    k1.LAUNCHES = 0
-    for name in ot.LAUNCHES:
-        ot.LAUNCHES[name] = 0
+    for launches in (k1.LAUNCHES, ot.LAUNCHES):
+        for name in launches:
+            launches[name] = 0
 
 
 def _counts() -> dict:
+    """Launches since the last reset: K1's bf16 variant as "topk2_match",
+    its f32 variant as "topk2_match f32", and K2-K9."""
     from tpusfm_torch.ops import obs_table as ot
     from tpusfm_torch.ops import topk2_match as k1
 
-    return {"topk2_match": k1.LAUNCHES, **ot.LAUNCHES}
+    return {"topk2_match": k1.LAUNCHES["quantized"], "topk2_match f32": k1.LAUNCHES["f32"],
+            **ot.LAUNCHES}
+
+
+def _only_bf16_k1(counts: dict, label: str) -> None:
+    """The main path matches through K1's bf16 variant only."""
+    if not counts["topk2_match"] or counts["topk2_match f32"]:
+        raise AssertionError(f"{label}: K1 launched {counts['topk2_match']} times as bf16 and "
+                             f"{counts['topk2_match f32']} as f32; the path takes bf16 only")
 
 
 def phase_slice20(entry: dict) -> None:
@@ -355,7 +465,9 @@ def phase_slice20(entry: dict) -> None:
     scene, report = run_sparse(images, gt["intr"], cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = _counts()["topk2_match"]
+    counts = _counts()
+    _only_bf16_k1(counts, "20-view run")
+    launches = counts["topk2_match"]
     n_pairs = n_views * (n_views - 1) // 2
     ch = max(cfg.matching.pair_chunk, 32 * ((n_pairs + 31) // 32))
     n_chunks = (n_pairs + ch - 1) // ch
@@ -369,6 +481,8 @@ def phase_slice20(entry: dict) -> None:
 def _variant(name: str, a: tuple, k: dict) -> str:
     """The launch variant a path is held to: K2's mode, K4/K5's block
     height D, K6/K7's value count k."""
+    if name == "match_topk2":
+        return "quantized" if k.get("quantized", len(a) > 3 and a[3]) else "f32"
     if name == "linearize_reduce_radial3_t":
         return "refine" if k.get("refine", len(a) > 8 and a[8]) else "held"
     if name in ("schur_bwd_t", "schur_fwd_t"):
@@ -441,6 +555,7 @@ def _run_rung(images, gt, cfg, label, captured, **kw):
         torch.cuda.synchronize()
         wall = time.time() - t0
     counts = _counts()
+    _only_bf16_k1(counts, label)
     _check_quality(scene, report, gt, images.shape[0], 190, 0.10, label)
     print(f"  tracks {report['n_tracks']}, observations {report['n_obs']}, "
           f"launches {json.dumps(counts)}, wall {wall:.2f} s")
@@ -463,6 +578,7 @@ def phase_slice200(entries: dict) -> dict:
         raise AssertionError(f"200-view run: a kernel of the path did not launch: {counts}")
     for name in BA_KERNELS:
         entries[name]["launches"] = counts[name]
+    entries[K1_200]["launches"] = counts["topk2_match"]
     return captured
 
 
@@ -564,13 +680,13 @@ def _f64(args):
                  for t in args)
 
 
-def _bound(inputs, outputs, flops: float) -> dict:
+def _bound(inputs, outputs, flops: float, rate: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take for one call: its inputs read
-    once and its outputs written once at the memory rate, or its float32
-    operations at the peak rate, whichever is longer."""
+    once and its outputs written once at the memory rate, or its operations
+    at their peak `rate` (float32 unless given), whichever is longer."""
     nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
             else "operations"}
 
@@ -729,31 +845,29 @@ def _bench_kernel_args(args):
             ((W, cam, ranks, z, C), dict(layout=layout, w_seg=W_seg)))
 
 
-def _check_k1_captured(captured: dict, card: str) -> None:
+def _check_k1_captured(captured: dict, card: str) -> dict:
     """K1 at the 200-view path's own chunk (its last call, real SIFT
-    descriptors on the u8 grid): bit-equal to the twin, both timed."""
+    descriptors on the u8 grid): the bf16 kernel bit-equal to its twin and
+    to the f32 kernel, the same bits on a repeat; the same chunk moved off
+    the grid by a seeded offset in (-0.5, 0.5) within the off-grid
+    tolerance; both variants timed.  Returns the K1_200 entry's numbers."""
     import torch
 
-    from tpusfm_torch.ops import topk2_match as k1
-
-    (da, db, mb), _ = captured["match_topk2"]
+    da, db, mb = captured["match_topk2", "quantized"][0][:3]
     label = f"{da.shape[0]} pairs x {da.shape[1]} x {db.shape[1]} (200-view chunk)"
-    got = _repeat_equal(lambda: k1.match_topk2(da, db, mb), "K1")
-    want = k1.match_topk2_reference(da, db, mb)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        raise AssertionError(f"K1 differs from its twin at {label}: max err {err}")
-    ms = _median_ms(lambda: k1.match_topk2(da, db, mb))
-    plain_ms = _median_ms(lambda: k1.match_topk2_reference(da, db, mb))
-    print(f"K1 bit-equal to twin at {label}; on {card}: kernel {ms:.4f} ms vs twin "
-          f"{plain_ms:.4f} ms")
+    err = _k1_equal(da, db, mb, label)
+    gen = torch.Generator(device=da.device).manual_seed(1)
+    off = [x + torch.rand(x.shape, generator=gen, device=x.device) - 0.5 for x in (da, db)]
+    _k1_off_grid(off[0], off[1], mb, label + ", moved off the grid")
+    del off
+    return {"max_abs_err": err, **_k1_times(da, db, mb, label, card)}
 
 
 def phase_ba_kernels(card, captured: dict, entries: dict) -> dict:
     import torch
 
     dev = torch.device("cuda")
-    _check_k1_captured(captured, card)
+    entries[K1_200].update(_check_k1_captured(captured, card))
     res_a = _check_ba_kernels("(a) 200-view final BA", *(captured[n] for n in BA_KERNELS), card)
     for name, res in res_a.items():
         entries[name].update(res)
@@ -1076,6 +1190,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     entries = {"topk2_match": phase_kernel(card)}
+    entries[K1_200] = {**entries["topk2_match"], "name": K1_200, "launches": None}
     for name, (src, line) in {
             "linearize_reduce_radial3_t": ("ba_linearize.cu", 1439),
             "schur_mv_t": ("ba_schur.cu", 2023),

@@ -42,12 +42,112 @@ def test_kernel_bit_equal_to_twin(dev, P, na, nb, mask_frac):
     gen = torch.Generator(device=dev).manual_seed(P * 1000 + na)
     da, db = _u8((P, na, 128), gen, dev), _u8((P, nb, 128), gen, dev)
     mb = torch.rand((P, nb), generator=gen, device=dev) >= mask_frac
-    before = topk2_match.LAUNCHES
+    before = dict(topk2_match.LAUNCHES)
     got = topk2_match.match_topk2(da, db, mb)
     torch.cuda.synchronize()
-    assert topk2_match.LAUNCHES == before + 1
+    assert topk2_match.LAUNCHES == {"quantized": before["quantized"], "f32": before["f32"] + 1}
     for g, w in zip(got, topk2_match.match_topk2_reference(da, db, mb)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("P,na,nb,mask_frac", [(4, 1024, 1024, 0.1), (3, 130, 200, 0.1),
+                                               (2, 65, 1, 0.0), (2, 130, 200, 1.1)])
+def test_quantized_kernel_bit_equal_to_twin_and_f32_variant(dev, P, na, nb, mask_frac):
+    """The bf16 tensor-core variant on the u8 grid: bit-equal to its twin
+    and to the f32 variant, the same bits on a repeat call, one launch of
+    its own variant per call."""
+    gen = torch.Generator(device=dev).manual_seed(P * 1000 + na + 7)
+    da, db = _u8((P, na, 128), gen, dev), _u8((P, nb, 128), gen, dev)
+    mb = torch.rand((P, nb), generator=gen, device=dev) >= mask_frac
+    before = dict(topk2_match.LAUNCHES)
+    got = topk2_match.match_topk2(da, db, mb, quantized=True)
+    again = topk2_match.match_topk2(da, db, mb, quantized=True)
+    f32 = topk2_match.match_topk2(da, db, mb)
+    torch.cuda.synchronize()
+    assert topk2_match.LAUNCHES == {"quantized": before["quantized"] + 2, "f32": before["f32"] + 1}
+    want = topk2_match.match_topk2_reference(da, db, mb, quantized=True)
+    for g, a, f, w in zip(got, again, f32, want):
+        assert torch.equal(g, w) and torch.equal(g, f) and torch.equal(g, a)
+    if mask_frac > 1:
+        assert bool((got[0] >= 1e38).all())
+
+
+def test_quantized_kernel_off_grid_within_tolerance(dev):
+    """Float descriptors: d1 and d2 within 1e-5 x (|a|^2 of the rounded row
+    + the largest |b|^2) of the quantized twin, which sums the same bf16
+    products in another order; i1 equal wherever d2 - d1 exceeds that; the
+    same bits on a repeat call."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    da = torch.randn((4, 300, 128), generator=gen, device=dev) * 20
+    db = torch.cat([da[:, :250] + 0.3 * torch.randn((4, 250, 128), generator=gen, device=dev),
+                    torch.randn((4, 210, 128), generator=gen, device=dev) * 20], dim=1)
+    mb = torch.rand((4, 460), generator=gen, device=dev) > 0.05
+    got = topk2_match.match_topk2(da, db, mb, quantized=True)
+    again = topk2_match.match_topk2(da, db, mb, quantized=True)
+    d1, d2, i1 = topk2_match.match_topk2_reference(da, db, mb, quantized=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ar = da.to(torch.bfloat16).double()
+    tol = 1e-5 * ((ar * ar).sum(-1) + (db.double() ** 2).sum(-1).amax(-1, keepdim=True))
+    assert bool(((got[0].double() - d1.double()).abs() <= tol).all())
+    assert bool(((got[1].double() - d2.double()).abs() <= tol).all())
+    sep = (d2.double() - d1.double()) > tol
+    assert torch.equal(got[2][sep], i1[sep]) and sep.float().mean() > 0.5
+
+
+def test_quantized_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    """Shapes, dtypes, strides and devices the kernel does not take raise
+    before any launch."""
+    mb = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    good = torch.zeros((2, 8, 128), device=dev)
+    before = dict(topk2_match.LAUNCHES)
+    bad = [(torch.zeros((2, 8, 64), device=dev),) * 2 + (mb,),
+           (torch.zeros((8, 2, 128), device=dev).transpose(0, 1),) * 2 + (mb,),
+           (good.double(), good.double(), mb),
+           (good, good, mb[:, :5]),
+           (good, good.cpu(), mb),
+           (good[:, :0].contiguous(), good, mb)]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            topk2_match.match_topk2(*args, quantized=True)
+    assert topk2_match.LAUNCHES == before
+
+
+def test_quantized_launch_error_raises_without_fallback(dev, monkeypatch):
+    """A launch the card refuses raises; neither the f32 kernel nor the twin
+    answers in its place, and nothing is counted."""
+    class Refusing:
+        def tpusfm_topk2_match(self, *args):
+            self.quantized = args[10]
+            return 98  # cudaErrorInvalidDeviceFunction
+
+        def tpusfm_cuda_error_string(self, code):
+            return b"invalid device function"
+
+    lib = Refusing()
+    monkeypatch.setattr(topk2_match.cuda_build, "kernels", lambda: lib)
+    monkeypatch.setattr(topk2_match, "match_topk2_reference", None)
+    da = torch.zeros((2, 8, 128), device=dev)
+    before = dict(topk2_match.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        topk2_match.match_topk2(da, da, torch.ones((2, 8), dtype=torch.bool, device=dev),
+                                quantized=True)
+    assert lib.quantized == 1 and topk2_match.LAUNCHES == before
+
+
+def test_run_sparse_at_20_views_launches_only_the_quantized_kernel(dev):
+    """run_sparse matches its 190 pairs in one chunk through the bf16
+    variant: two launches (the cross-check's second), none of the f32 one."""
+    images, gt = render_orbit_images(n_views=20, img_h=240, img_w=320, focal=0.9 * 320,
+                                     arc_deg=110.0, seed=0)
+    cfg = config_from_overrides(**{"sift.n_octaves": 3, "sift.max_per_octave": 512,
+                                   "sift.max_features": 768, "matching.pair_chunk": 16,
+                                   "filter.max_iterations": 128, "feature_batch": 10})
+    for k in topk2_match.LAUNCHES:
+        topk2_match.LAUNCHES[k] = 0
+    scene, report = run_sparse(images, gt["intr"], cfg, device=dev)
+    assert topk2_match.LAUNCHES == {"quantized": 2, "f32": 0}
+    assert int(scene.cam_mask.sum()) >= 15 and report["n_points"] > 50
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -65,9 +165,10 @@ def test_run_sparse_on_card(dev):
     cfg = config_from_overrides(**{"sift.n_octaves": 3, "sift.max_per_octave": 512,
                                    "sift.max_features": 768, "matching.pair_chunk": 16,
                                    "filter.max_iterations": 128, "feature_batch": 3})
-    topk2_match.LAUNCHES = 0
+    for k in topk2_match.LAUNCHES:
+        topk2_match.LAUNCHES[k] = 0
     scene, report = run_sparse(images, gt["intr"], cfg, device=dev)
-    assert topk2_match.LAUNCHES >= 2
+    assert topk2_match.LAUNCHES["quantized"] >= 2 and topk2_match.LAUNCHES["f32"] == 0
     reg = scene.cam_mask.cpu().numpy()
     assert reg.sum() >= 5
     ate = metrics.ate_rmse(scene.camera_centers().cpu().numpy()[reg], gt["centers"][reg])

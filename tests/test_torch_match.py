@@ -5,6 +5,8 @@ On SIFT's u8 grid every distance is an exact integer, so d1, d2, i1 and
 `ok` must agree bit for bit; on random float descriptors `ok` must agree and
 i1 must agree where `ok` holds."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,3 +165,94 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         topk2_match._check_inputs(da, db, mb[:, :5])
 
+
+
+# The reference's bf16 path (quantized=True, which its run_sparse passes):
+# bf16 products, |a|^2 of the rounded A, |b|^2 of the unrounded B.
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_quantized_twin_bit_equal_on_u8_grid(name):
+    """On the u8 grid bf16 holds every value and every partial sum is an
+    integer below 2^24: the port's quantized twin equals the reference's
+    quantized kernel (interpret mode) and the f32 twin bit for bit."""
+    da, db, ma, mb = _case(name, grid=True)
+    want = pallas_match.match_topk2(jnp.asarray(da), jnp.asarray(db), jnp.asarray(mb),
+                                    interpret=True, quantized=True)
+    got = topk2_match.match_topk2(_t(da)[None], _t(db)[None], _t(mb)[None], quantized=True)
+    f32 = topk2_match.match_topk2(_t(da)[None], _t(db)[None], _t(mb)[None])
+    for g, w, f in zip(got, want, f32):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g[0].numpy(), f[0].numpy())
+    ji, jok = pallas_match.match_descriptors_pallas(
+        jnp.asarray(da), jnp.asarray(db), jnp.asarray(ma), jnp.asarray(mb), interpret=True,
+        quantized=True)
+    i, ok = topk2_match.match_descriptors_topk2(_t(da)[None], _t(db)[None], _t(ma)[None],
+                                                _t(mb)[None], quantized=True)
+    np.testing.assert_array_equal(ok[0].numpy(), np.asarray(jok))
+    np.testing.assert_array_equal(i[0].numpy(), np.asarray(ji))
+
+
+def _quantized_tol(da, db):
+    """Per A row, the tolerance for the quantized path off the grid, where
+    the two packages sum the same bf16 products in other orders:
+    1e-5 x (|a|^2 of the rounded row + the largest |b|^2)."""
+    a = torch.from_numpy(da).to(torch.bfloat16).double().numpy()
+    return 1e-5 * (np.sum(a * a, -1) + np.max(np.sum(db.astype(np.float64) ** 2, -1)))
+
+
+def _top2_q(a, b, mb, port):
+    if port:
+        return [x[0].numpy().astype(np.float64) for x in
+                topk2_match.match_topk2(_t(a)[None], _t(b)[None], _t(mb)[None], quantized=True)]
+    return [np.asarray(x).astype(np.float64) for x in
+            pallas_match.match_topk2(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mb),
+                                     interpret=True, quantized=True)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_quantized_twin_within_tolerance_off_grid(name):
+    """Float (off-grid) descriptors: d1 and d2 within _quantized_tol of the
+    reference's quantized kernel; i1 equal wherever d2 - d1 exceeds it; the
+    ratio test + cross-check `ok` (and i1 where it holds) equal except for
+    rows within it of the ratio boundary or whose forward or cross-check
+    argmin it leaves open."""
+    da, db, ma, mb = _case(name, grid=False)
+    tol = _quantized_tol(da, db)
+    d1, d2, i1 = _top2_q(da, db, mb, port=True)
+    jd1, jd2, ji1 = _top2_q(da, db, mb, port=False)
+    assert np.all(np.abs(d1 - jd1) <= tol) and np.all(np.abs(d2 - jd2) <= tol)
+    sep = jd2 - jd1 > tol
+    np.testing.assert_array_equal(i1[sep], ji1[sep])
+    # The cross-check's B -> A call, whose tolerance is per B row.
+    rd1, rd2, _ = _top2_q(db, da, ma, port=False)
+    rsep = rd2 - rd1 > _quantized_tol(db, da)
+    ratio2 = 0.8 * 0.8
+    open_ = (~sep) | (~rsep[ji1.astype(int)]) | (np.abs(jd1 - ratio2 * jd2) <= (1 + ratio2) * tol)
+    ji, jok = pallas_match.match_descriptors_pallas(
+        jnp.asarray(da), jnp.asarray(db), jnp.asarray(ma), jnp.asarray(mb), interpret=True,
+        quantized=True)
+    i, ok = topk2_match.match_descriptors_topk2(_t(da)[None], _t(db)[None], _t(ma)[None],
+                                                _t(mb)[None], quantized=True)
+    ok, jok = ok[0].numpy(), np.asarray(jok)
+    np.testing.assert_array_equal(ok[~open_], jok[~open_])
+    both = ok & jok
+    np.testing.assert_array_equal(i[0].numpy()[both], np.asarray(ji)[both])
+    if name.endswith("all_masked"):
+        assert not jok.any() and np.all(d1 >= 1e38)
+    else:
+        assert open_.mean() < 0.05 and jok.sum() > 100
+
+
+def test_cuda_chunk_asks_for_the_quantized_kernel(monkeypatch):
+    """The pipeline's CUDA matching chunk calls K1 with quantized=True, as
+    the reference's run_sparse does (tpusfm/pipeline/sparse.py:97-105)."""
+    seen = {}
+
+    def fake(*a, **k):
+        seen.update(k)
+        return "i", "ok"
+
+    monkeypatch.setattr(topk2_match, "match_descriptors_topk2", fake)
+    chunk = types.SimpleNamespace(device=torch.device("cuda"), shape=(2, 8, 128))
+    assert tsparse._match_chunk(chunk, chunk, None, None, 0.8, True) == ("i", "ok")
+    assert seen == {"ratio": 0.8, "cross_check": True, "quantized": True}

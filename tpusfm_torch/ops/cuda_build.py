@@ -89,7 +89,7 @@ def kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tpusfm_topk2_match.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.tpusfm_topk2_match.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.tpusfm_topk2_match.restype = ci
         lib.tpusfm_ba_linearize.argtypes = ([ci] + [vp] * 18 + [ci] * 7 + [ctypes.c_float, ci]
                                             + [vp] * 8)

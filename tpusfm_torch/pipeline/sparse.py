@@ -74,14 +74,16 @@ def generate_pairs(n_views: int, cfg: PipelineConfig, feats: sift.Features | Non
 
 
 def _match_chunk(da, db, ma, mb, ratio, cross_check):
-    """A CUDA chunk with 128-wide descriptors goes through kernel K1 (two
-    launches with the cross-check); a CPU chunk through the plain matcher."""
+    """A CUDA chunk with 128-wide descriptors goes through kernel K1's bf16
+    variant (two launches with the cross-check), as the reference passes
+    quantized=True: SIFT descriptors lie on the u8 grid, where it is exact.
+    A CPU chunk goes through the plain matcher."""
     if da.device.type == "cuda":
         if da.shape[-1] != topk2_match.D:
             raise ValueError(f"the CUDA matcher takes {topk2_match.D}-wide descriptors, "
                              f"got {da.shape[-1]}")
         return topk2_match.match_descriptors_topk2(da, db, ma, mb, ratio=ratio,
-                                                   cross_check=cross_check)
+                                                   cross_check=cross_check, quantized=True)
     if da.device.type != "cpu":
         raise ValueError(f"no matcher for device {da.device}")
     return match_mod.match_descriptors(da, db, ma, mb, ratio=ratio, cross_check=cross_check)
