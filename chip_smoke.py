@@ -82,17 +82,40 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    both timed;
 13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
    to their twins with zero rows outside the table, timed beside
-   index_select; K6 at the gather run's shapes (k = 42 and 36).
+   index_select; K6 at the gather run's shapes (k = 42 and 36);
+14. the preemptive prefilter on tests/test_preemptive.py's 8-view scene:
+   its keep mask, from K1's bf16 variant (counts reset just before), equal
+   to the plain matcher's on the same card tensors; kept rows equal full
+   matching's, dropped rows all invalid, at least one pair dropped;
+15. two_view_reconstruct on the card with tests/test_two_view.py's setup:
+   K1 launched bf16 only, more than 40 inliers, rotation within 2 degrees,
+   more than 95% of the inlier points in front;
+16. the 1000-view pod rung (bench.py:481-503, uncut: 240x320, contiguous
+   window 8 plus loop-closure retrieval top 5) through run_sparse once,
+   counts reset just before: >= 950/1000 views, ATE <= 0.30, > 1000
+   points, finite geometry, loop pairs proposed and kept, K1 bf16 only and
+   K2-K4 launched; prints the stage and engine-phase times, observations,
+   pair counts, BA solves by kind and shape (the windowed local share) and
+   the wall time;
+17. K1 at the pod run's matching chunk and K2-K4 at its final 1000-camera
+   BA against their twins, as phase 8; K2 at its last kernel-path local
+   step-BA: the padding rows (repeating the last point under
+   assume_sorted) get zero W and change no sum, timed against the
+   unpadded table;
+18. tests/test_pod_scale.py's 1000-camera BA problem single-device through
+   the kernels (BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)):
+   rmse < 0.8 px, ATE < 0.01; LM iterations per second.
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
-shape, a second K4 entry at path B's cameras and a second K1 entry at the
-200-view chunk: route, source, the TPU kernel it replaces, launches in its
-main-path run (the 20-view run for K1, the held 200-view run for the
-second K1 entry and K2-K4, the 500-camera kernel-path solve of phase
-10 for the second K3 and K2 entries, path A for K5, path B for K6, K7 and
-the second K4 entry, the gather run for K8 and K9, the composition of
-phase 9 for K2 unreduced), max abs error
+shape, a second K4 entry at path B's cameras, a second K1 entry at the
+200-view chunk, and K1-K4 entries at the pod rung's shapes: route, source,
+the TPU kernel it replaces, launches in its main-path run (the 20-view run
+for K1, the held 200-view run for the second K1 entry and K2-K4, the
+500-camera kernel-path solve of phase 10 for the second K3 and K2 entries,
+path A for K5, path B for K6, K7 and the second K4 entry, the gather run
+for K8 and K9, the composition of phase 9 for K2 unreduced, the pod run
+for the pod entries), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
 device time from torch.profiler (with the kernels of a call printed), the
 least time the card could take (bytes at 3.35 TB/s or operations at their
@@ -132,6 +155,12 @@ K2_BENCH = "linearize_reduce_radial3_t (500-camera BA)"
 K4_PATH_B = "schur_bwd_t (path B, cameras)"
 # A second K1 entry at the 200-view run's own chunk, its launches that run's.
 K1_200 = "topk2_match (200-view chunk)"
+# The pod rung's entries: K1 at its matching chunk, K2-K4 at its final
+# 1000-camera BA, their launches those of the pod run.
+POD = {"topk2_match": "topk2_match (pod rung chunk)",
+       "linearize_reduce_radial3_t": "linearize_reduce_radial3_t (pod rung final BA)",
+       "schur_mv_t": "schur_mv_t (pod rung final BA)",
+       "schur_bwd_t": "schur_bwd_t (pod rung final BA)"}
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory,
 # float32 outside the tensor cores, which every kernel but K1's bf16 one
 # computes in, and dense bf16 on the tensor cores.
@@ -845,16 +874,16 @@ def _bench_kernel_args(args):
             ((W, cam, ranks, z, C), dict(layout=layout, w_seg=W_seg)))
 
 
-def _check_k1_captured(captured: dict, card: str) -> dict:
-    """K1 at the 200-view path's own chunk (its last call, real SIFT
-    descriptors on the u8 grid): the bf16 kernel bit-equal to its twin and
-    to the f32 kernel, the same bits on a repeat; the same chunk moved off
-    the grid by a seeded offset in (-0.5, 0.5) within the off-grid
-    tolerance; both variants timed.  Returns the K1_200 entry's numbers."""
+def _check_k1_captured(captured: dict, card: str, run: str = "200-view") -> dict:
+    """K1 at a run's own chunk (its last call, real SIFT descriptors on the
+    u8 grid): the bf16 kernel bit-equal to its twin and to the f32 kernel,
+    the same bits on a repeat; the same chunk moved off the grid by a
+    seeded offset in (-0.5, 0.5) within the off-grid tolerance; both
+    variants timed.  Returns the entry's numbers."""
     import torch
 
     da, db, mb = captured["match_topk2", "quantized"][0][:3]
-    label = f"{da.shape[0]} pairs x {da.shape[1]} x {db.shape[1]} (200-view chunk)"
+    label = f"{da.shape[0]} pairs x {da.shape[1]} x {db.shape[1]} ({run} chunk)"
     err = _k1_equal(da, db, mb, label)
     gen = torch.Generator(device=da.device).manual_seed(1)
     off = [x + torch.rand(x.shape, generator=gen, device=x.device) - 0.5 for x in (da, db)]
@@ -1077,6 +1106,254 @@ def phase_gather_kernels(card: str, cap_g: dict, cap_b: dict, entries: dict) -> 
     _check_kernel("gather_sorted", cap_b["gather_sorted", "D=3"], "path B, points by rank")
 
 
+PRE_BASE = {"sift.n_octaves": 3, "sift.max_features": 512, "sift.max_per_octave": 256,
+            "matching.pair_chunk": 8}  # tests/test_preemptive.py:13-16
+
+
+def phase_preemptive() -> None:
+    """The preemptive prefilter on tests/test_preemptive.py's 8-view scene
+    (240x320, 200-degree arc, exhaustive pairs): its keep mask, computed by
+    K1's bf16 variant, equals the plain full-matrix matcher's on the same
+    card tensors; with the prefilter, kept pairs' matches equal full
+    matching's and dropped rows are all invalid; every pair with 50
+    putative matches survives and at least one pair drops."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.matching import match as tmatch
+    from tpusfm_torch.pipeline import sparse
+    from tpusfm_torch.pipeline.config import config_from_overrides
+    from tpusfm_torch.utils.synth_render import render_orbit_images
+
+    images, _ = render_orbit_images(n_views=8, img_h=240, img_w=320, arc_deg=200.0)
+    full = config_from_overrides(**PRE_BASE)
+    pre = config_from_overrides(**PRE_BASE, **{"matching.preemptive": True})
+    feats = sparse.detect_features(images, full, device="cuda")
+    pl = sparse.generate_pairs(8, full)
+    _reset_counts()
+    keep = sparse.preemptive_filter_pairs(feats, pl, pre)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _only_bf16_k1(counts, "preemptive prefilter")
+    K = pre.matching.preemptive_features
+    ia, ib = (torch.as_tensor(pl[:, i], device="cuda").long() for i in (0, 1))
+    desc, mask = feats.desc[:, :K], feats.mask[:, :K]
+    _, ok = tmatch.match_descriptors(desc[ia], desc[ib], mask[ia], mask[ib])
+    plain = (ok.sum(-1) >= pre.matching.preemptive_min_matches).cpu().numpy()
+    if not np.array_equal(keep, plain):
+        raise AssertionError(f"preemptive keep mask from K1 {keep.astype(int).tolist()} differs "
+                             f"from the plain matcher's {plain.astype(int).tolist()}")
+    mi0, mv0 = sparse.match_pairs(feats, pl, full)
+    mi1, mv1 = sparse.match_pairs(feats, pl, pre)
+    if (not np.array_equal(mv1[keep], mv0[keep]) or not np.array_equal(mi1[keep], mi0[keep])
+            or mv1[~keep].any()):
+        raise AssertionError("matching with the prefilter: kept rows differ from full matching's "
+                             "or dropped rows are not all invalid")
+    if not (~keep).any() or not (keep | (mv0.sum(1) < 50)).all():
+        raise AssertionError(f"preemptive prefilter: kept {keep.astype(int).tolist()} for "
+                             f"putative counts {mv0.sum(1).tolist()}")
+    print(f"preemptive prefilter, 8 views, {len(pl)} pairs: kept {int(keep.sum())}, K1 bf16 "
+          f"launches {counts['topk2_match']}; keep mask equal to the plain matcher's on the same "
+          f"card tensors; kept rows equal full matching's, dropped rows all invalid")
+
+
+def phase_two_view() -> None:
+    """two_view_reconstruct on the card with tests/test_two_view.py's setup
+    (two 240x320 views 10 degrees apart): K1 launched, bf16 only; more than
+    40 inliers, relative rotation within 2 degrees, more than 95% of the
+    inlier points in front."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.core import camera as tcam
+    from tpusfm_torch.features.sift import SiftConfig
+    from tpusfm_torch.sfm.two_view import two_view_reconstruct
+    from tpusfm_torch.utils.synth_render import render_orbit_images
+
+    images, gt = render_orbit_images(n_views=2, img_h=240, img_w=320, focal=0.9 * 320,
+                                     arc_deg=10.0, seed=3)
+    intr = tcam.make_intrinsics(0.9 * 320, cx=160.0, cy=120.0, device="cuda")
+    _reset_counts()
+    t0 = time.time()
+    out = two_view_reconstruct(images, intr, sift_cfg=SiftConfig(n_octaves=3, max_per_octave=512,
+                                                                 max_features=768),
+                               ransac_iters=256, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counts()
+    _only_bf16_k1(counts, "two-view")
+    R_rel = gt["R"][1] @ gt["R"][0].T
+    cos = (np.trace(out["R"].cpu().numpy() @ R_rel.T) - 1) / 2
+    err = float(np.degrees(np.arccos(np.clip(cos, -1, 1))))
+    X = out["points"][out["inliers"]].cpu().numpy()
+    front = float((X[:, 2] > 0).mean()) if len(X) else 0.0
+    n_inl, n_match = int(out["n_inliers"]), int(out["n_matches"])
+    print(f"two-view: {n_inl} inliers of {n_match} matches, rotation error {err:.4f} deg, "
+          f"{front:.4f} of the inlier points in front, K1 bf16 launches {counts['topk2_match']}, "
+          f"wall {wall:.2f} s")
+    if not (n_inl > 40 and err < 2.0 and front > 0.95):
+        raise AssertionError(f"two-view bars: {n_inl} inliers, {err} deg, {front} in front")
+
+
+@contextlib.contextmanager
+def _local_k2_calls(local: dict):
+    """Keeps the last K2 call made inside a windowed local step-BA in
+    local["linearize_reduce_radial3_t"] (the other wrappers stay as they
+    are).  Restores both patches on exit."""
+    from tpusfm_torch.ops import obs_table as ot
+    from tpusfm_torch.sfm.incremental import IncrementalEngine
+
+    inside = [False]
+    run_local, k2 = IncrementalEngine._run_ba_local, ot.linearize_reduce_radial3_t
+
+    def run_ba_local(self, *a, **k):
+        inside[0] = True
+        try:
+            return run_local(self, *a, **k)
+        finally:
+            inside[0] = False
+
+    def k2_rec(*a, **k):
+        if inside[0]:
+            local["linearize_reduce_radial3_t"] = (a, k)
+        return k2(*a, **k)
+
+    IncrementalEngine._run_ba_local, ot.linearize_reduce_radial3_t = run_ba_local, k2_rec
+    try:
+        yield
+    finally:
+        IncrementalEngine._run_ba_local, ot.linearize_reduce_radial3_t = run_local, k2
+
+
+def phase_pod(entries: dict) -> tuple[dict, dict]:
+    """The reference's 1000-view pod rung (bench.py:481-503, uncut; see
+    tools/pod_rung.py) through run_sparse once: at least 950/1000 views,
+    ATE <= 0.30, more than 1000 points, finite geometry; loop pairs
+    proposed by retrieval (more than 16 views apart) and at least one kept
+    by the geometric filter; K1 launched bf16 only, K2, K3 and K4
+    launched.  Returns the run's last kernel calls and the last K2 call of
+    a windowed local step-BA."""
+    import torch
+
+    from tpusfm_torch.pipeline.sparse import run_sparse
+    from tpusfm_torch.tools.pod_rung import pod_inputs, pod_summary
+
+    t0 = time.time()
+    images, gt, cfg = pod_inputs(1000)
+    render_s = time.time() - t0
+    captured, local = {}, {}
+    _reset_counts()
+    with _recording(captured) as (solves, calls), _local_k2_calls(local):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene, report = run_sparse(images, gt["intr"], cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = _counts()
+    _only_bf16_k1(counts, "pod rung")
+    s = pod_summary(scene, report, gt, cfg.matching.contiguous_window)
+    local_cams = s["local_ba_cams"]
+    dense = sum(n for c, n in local_cams.items() if c * 6 <= cfg.engine.ba.dense_schur_max_dim)
+    print(f"pod rung (1000 views 240x320, window 8 + loop closure top 5): registered "
+          f"{s['registered']}/1000, ATE {s['ate']:.5f}, points {s['points']}, observations "
+          f"{s['n_obs']}, render {render_s:.1f} s, wall {wall:.2f} s")
+    print(f"  pairs {json.dumps(s['pairs'])}")
+    print(f"  times_s {json.dumps(s['times_s'])}")
+    print(f"  recon_phase_s {json.dumps(s['recon_phase_s'])}")
+    print(f"  BA solves {json.dumps(s['ba_solves'])}; windowed local share of step-BAs "
+          f"{s['local_step_ba_share']:.4f}; local solves by camera bucket {local_cams} "
+          f"({dense} dense-Schur, {sum(local_cams.values()) - dense} through the kernels)")
+    print(f"  launches {json.dumps(counts)}")
+    print(f"  _lm_kernels solves {len(solves)}, kernel calls by variant: "
+          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+    if (s["registered"] < 950 or not s["ate"] <= 0.30 or s["points"] <= 1000
+            or not s["finite"]):
+        raise AssertionError(f"pod rung quality: {s}; log {report['engine_log'][-5:]}")
+    if not s["pairs"]["loop_proposed"] or not s["pairs"]["loop_kept"]:
+        raise AssertionError(f"pod rung: no loop pair proposed or kept: {s['pairs']}")
+    if any(counts[n] == 0 for n in ("topk2_match",) + BA_KERNELS):
+        raise AssertionError(f"pod rung: a kernel of the path did not launch: {counts}")
+    if "linearize_reduce_radial3_t" not in local:
+        raise AssertionError(f"pod rung: no windowed local step-BA ran through K2: {local_cams}")
+    entries[POD["topk2_match"]]["launches"] = counts["topk2_match"]
+    for name in BA_KERNELS:
+        entries[POD[name]]["launches"] = counts[name]
+    return captured, local
+
+
+def _check_local_padding(call, card: str) -> None:
+    """K2 at the pod run's last kernel-path local step-BA, whose table is
+    point-sorted under assume_sorted and padded to its bucket with weight-0
+    rows that repeat the last point: the padding's W columns are zero, and
+    the reduced outputs and the real rows' W equal K2's on the table
+    without the padding (within 1e-6 of each output's largest entry, the
+    chunks of the real rows being the same); both timed."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
+    a, kw = call
+    w = a[7]
+    n = int(torch.nonzero(w).max()) + 1
+    C, P = a[0].shape[0], a[2].shape[0]
+    cut = a[:3] + (a[3][:n], a[4][:n], a[5][:n], a[6][:, :n].contiguous(), w[:n])
+    kw_cut = dict(kw, layout=ot.obs_layout(cut[3], C, cut[5], P))
+    got = ot.linearize_reduce_radial3_t(*a, **kw)
+    ref = ot.linearize_reduce_radial3_t(*cut, **kw_cut)
+    torch.cuda.synchronize()
+    pad_w = got[2][:, n:]
+    errs = [float((g[..., :r.shape[-1]].double() - r.double()).abs().max())
+            / max(float(r.double().abs().max()), 1e-30) for g, r in zip(got[:3], ref[:3])]
+    ms = _median_ms(lambda: ot.linearize_reduce_radial3_t(*a, **kw))
+    ms_cut = _median_ms(lambda: ot.linearize_reduce_radial3_t(*cut, **kw_cut))
+    print(f"K2 at a pod local step-BA (C={C}, P={P}, O={w.shape[0]}: {n} real rows, "
+          f"{w.shape[0] - n} padding rows repeating rank {int(a[5][-1])}) on {card}: padding W "
+          f"columns all zero {bool((pad_w == 0).all())}; camred, ptred, real W within "
+          f"{max(errs):.3e} of scale of the unpadded table's; {ms:.4f} ms padded vs "
+          f"{ms_cut:.4f} ms unpadded")
+    if not bool((pad_w == 0).all()) or not max(errs) <= 1e-6:
+        raise AssertionError(f"K2's padding rows at the pod local BA did work: {errs}")
+
+
+def phase_pod_kernels(card: str, captured: dict, local: dict, entries: dict) -> None:
+    """K1 at the pod run's own matching chunk, K2-K4 at its final
+    1000-camera BA (as phase 8), and K2's padding at a local step-BA."""
+    entries[POD["topk2_match"]].update(_check_k1_captured(captured, card, "pod rung"))
+    res = _check_ba_kernels("pod rung final BA", *(captured[n] for n in BA_KERNELS), card)
+    for name, r in res.items():
+        entries[POD[name]].update(r)
+    _check_local_padding(local["linearize_reduce_radial3_t"], card)
+
+
+def phase_pod_ba(card: str) -> None:
+    """tests/test_pod_scale.py's 1000-camera problem (40,000 points, more
+    than 200k observations) single-device through the kernels with its
+    BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768): rmse under 0.8 px
+    and ATE under 0.01; LM it/s."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.ba import bundle_adjust as tba
+    from tpusfm_torch.core import lie
+    from tpusfm_torch.utils import metrics
+    from tpusfm_torch.utils.synth_scene import pod_ba_problem
+
+    prob, centers = pod_ba_problem()
+    O = len(prob["obs_cam"])
+    bench = {k: torch.as_tensor(v, device="cuda") for k, v in prob.items()}
+    cfg = tba.BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)
+    with _recording(None) as (solves, _):
+        out, launches = _timed_solve(bench, cfg, "kernels, 1000-camera pod problem", card)
+    rmse = float(np.sqrt(2 * float(out[4]["final_cost"]) / O))
+    ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(out[1]), out[2]).cpu().numpy(), centers)
+    print(f"  1000-camera BA: O={O}, rmse {rmse:.5f} px, ATE {ate:.6f}, _lm_kernels solves "
+          f"{len(solves)}")
+    if O <= 200_000 or not rmse < 0.8 or not ate < 0.01:
+        raise AssertionError(f"1000-camera BA: O {O}, rmse {rmse}, ATE {ate}")
+    if not solves or any(launches[n] == 0 for n in BA_KERNELS):
+        raise AssertionError(f"1000-camera BA: not the kernel path: {launches}")
+
+
 BROWN_LENS = (-0.10, 0.015, 0.0, 0.008, -0.006)  # [k1 k2 k3 t1 t2], test_camera_models.py:153
 
 
@@ -1191,6 +1468,8 @@ def main() -> int:
     phase_build()
     entries = {"topk2_match": phase_kernel(card)}
     entries[K1_200] = {**entries["topk2_match"], "name": K1_200, "launches": None}
+    entries[POD["topk2_match"]] = {**entries["topk2_match"], "name": POD["topk2_match"],
+                                   "launches": None}
     for name, (src, line) in {
             "linearize_reduce_radial3_t": ("ba_linearize.cu", 1439),
             "schur_mv_t": ("ba_schur.cu", 2023),
@@ -1203,7 +1482,10 @@ def main() -> int:
             UNREDUCED: ("ba_linearize.cu", 1262),
             K3_BENCH: ("ba_schur.cu", 2023),
             K2_BENCH: ("ba_linearize.cu", 1439),
-            K4_PATH_B: ("ba_schur.cu", 1891)}.items():
+            K4_PATH_B: ("ba_schur.cu", 1891),
+            POD["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
+            POD["schur_mv_t"]: ("ba_schur.cu", 2023),
+            POD["schur_bwd_t"]: ("ba_schur.cu", 1891)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1220,6 +1502,13 @@ def main() -> int:
     cap_b = phase_brown(card, entries)
     phase_new_kernels(card, cap_a, cap_b, entries)
     phase_gather_kernels(card, cap_g, cap_b, entries)
+    del cap_a, cap_b, cap_g, captured
+    phase_preemptive()
+    phase_two_view()
+    cap_pod, local = phase_pod(entries)
+    phase_pod_kernels(card, cap_pod, local, entries)
+    del cap_pod, local
+    phase_pod_ba(card)
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

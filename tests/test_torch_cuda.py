@@ -793,3 +793,86 @@ def test_k2_and_k4_launch_counts_at_path_a(engine_tables):
             torch.cuda.synchronize()
         rows = _device_kernels(prof)
         assert len(rows) == kernels and all(n == 5 for _, n, _ in rows), (name, rows)
+
+
+PRE_BASE = {"sift.n_octaves": 3, "sift.max_features": 512, "sift.max_per_octave": 256,
+            "matching.pair_chunk": 8}
+
+
+def test_preemptive_k1_keep_mask_equals_plain_matcher_on_card(dev):
+    """tests/test_preemptive.py's 8-view scene on the card: the prefilter
+    runs K1's bf16 variant only, and its keep mask equals the one the plain
+    full-matrix matcher gives on the same card tensors; kept rows equal
+    full matching's, dropped rows are all invalid, some pairs drop."""
+    from tpusfm_torch.matching import match as tmatch
+    from tpusfm_torch.pipeline import sparse
+
+    images, _ = render_orbit_images(n_views=8, img_h=240, img_w=320, arc_deg=200.0)
+    full = config_from_overrides(**PRE_BASE)
+    pre = config_from_overrides(**PRE_BASE, **{"matching.preemptive": True})
+    feats = sparse.detect_features(images, full, device=dev)
+    pl = sparse.generate_pairs(8, full)
+    for k in topk2_match.LAUNCHES:
+        topk2_match.LAUNCHES[k] = 0
+    keep = sparse.preemptive_filter_pairs(feats, pl, pre)
+    assert topk2_match.LAUNCHES["quantized"] > 0 and topk2_match.LAUNCHES["f32"] == 0
+    K = pre.matching.preemptive_features
+    ia, ib = (torch.as_tensor(pl[:, i], device=dev).long() for i in (0, 1))
+    desc, mask = feats.desc[:, :K], feats.mask[:, :K]
+    _, ok = tmatch.match_descriptors(desc[ia], desc[ib], mask[ia], mask[ib])
+    plain = (ok.sum(-1) >= pre.matching.preemptive_min_matches).cpu().numpy()
+    np.testing.assert_array_equal(keep, plain)
+    assert (~keep).any() and keep.any()
+    mi0, mv0 = sparse.match_pairs(feats, pl, full)
+    mi1, mv1 = sparse.match_pairs(feats, pl, pre)
+    np.testing.assert_array_equal(mv1[keep], mv0[keep])
+    np.testing.assert_array_equal(mi1[keep], mi0[keep])
+    assert not mv1[~keep].any()
+
+
+def test_two_view_on_card_meets_reference_bars(dev):
+    """tests/test_two_view.py's setup through the port's entry point on the
+    card (K1 launched): more than 40 inliers, relative rotation within 2
+    degrees, more than 95% of the inlier points in front."""
+    from tpusfm_torch.core import camera as tcam
+    from tpusfm_torch.features.sift import SiftConfig
+    from tpusfm_torch.sfm.two_view import two_view_reconstruct
+
+    images, gt = render_orbit_images(n_views=2, img_h=240, img_w=320, focal=0.9 * 320,
+                                     arc_deg=10.0, seed=3)
+    for k in topk2_match.LAUNCHES:
+        topk2_match.LAUNCHES[k] = 0
+    out = two_view_reconstruct(images, tcam.make_intrinsics(0.9 * 320, cx=160.0, cy=120.0,
+                                                            device=dev),
+                               sift_cfg=SiftConfig(n_octaves=3, max_per_octave=512,
+                                                   max_features=768),
+                               ransac_iters=256, device=dev)
+    assert topk2_match.LAUNCHES["quantized"] == 2 and topk2_match.LAUNCHES["f32"] == 0
+    assert int(out["n_inliers"]) > 40
+    R_rel = gt["R"][1] @ gt["R"][0].T
+    cos = (np.trace(out["R"].cpu().numpy() @ R_rel.T) - 1) / 2
+    assert np.degrees(np.arccos(np.clip(cos, -1, 1))) < 2.0
+    X = out["points"][out["inliers"]].cpu().numpy()
+    assert (X[:, 2] > 0).mean() > 0.95
+
+
+def test_1000_camera_ba_through_the_kernels_on_card(dev):
+    """tests/test_pod_scale.py's problem (1000 cameras, 40,000 points, more
+    than 200k observations) single-device through _lm_kernels (K2-K4) with
+    its BAConfig: rmse under 0.8 px, ATE under 0.01."""
+    from tpusfm_torch.core import lie
+    from tpusfm_torch.utils.synth_scene import pod_ba_problem
+
+    prob, centers = pod_ba_problem()
+    O = len(prob["obs_cam"])
+    assert O > 200_000
+    for name in ot.LAUNCHES:
+        ot.LAUNCHES[name] = 0
+    cfg = tba.BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)
+    _, rot, t, _, info = tba.bundle_adjust(cfg=cfg, **_ba_args(prob, dev))
+    assert all(ot.LAUNCHES[k] > 0 for k in ("linearize_reduce_radial3_t", "schur_mv_t",
+                                            "schur_bwd_t")), ot.LAUNCHES
+    rmse = float(np.sqrt(2 * float(info["final_cost"]) / O))
+    assert rmse < 0.8, rmse
+    ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(rot), t).cpu().numpy(), centers)
+    assert ate < 0.01, ate

@@ -244,8 +244,9 @@ def test_quantized_twin_within_tolerance_off_grid(name):
 
 
 def test_cuda_chunk_asks_for_the_quantized_kernel(monkeypatch):
-    """The pipeline's CUDA matching chunk calls K1 with quantized=True, as
-    the reference's run_sparse does (tpusfm/pipeline/sparse.py:97-105)."""
+    """The pipeline's CUDA matching chunk (``match_on_device``) calls K1
+    with quantized=True, as the reference's run_sparse does
+    (tpusfm/pipeline/sparse.py:97-105)."""
     seen = {}
 
     def fake(*a, **k):
@@ -254,5 +255,5 @@ def test_cuda_chunk_asks_for_the_quantized_kernel(monkeypatch):
 
     monkeypatch.setattr(topk2_match, "match_descriptors_topk2", fake)
     chunk = types.SimpleNamespace(device=torch.device("cuda"), shape=(2, 8, 128))
-    assert tsparse._match_chunk(chunk, chunk, None, None, 0.8, True) == ("i", "ok")
+    assert tmatch.match_on_device(chunk, chunk, None, None, 0.8, True) == ("i", "ok")
     assert seen == {"ratio": 0.8, "cross_check": True, "quantized": True}

@@ -92,12 +92,11 @@ def test_config_defaults_match_reference():
         convert.config_from_jax(dense_off)
 
 
-@pytest.mark.parametrize("what", ["preemptive", "loop_closure", "devices", "engine_type"])
+@pytest.mark.parametrize("what", ["devices", "engine_type"])
 def test_unported_options_raise(what):
+    """Loop closure and preemptive matching are ported: their parity tests
+    are in test_torch_loop_closure.py."""
     cfg = {
-        "preemptive": tconfig.config_from_overrides(**{"matching.preemptive": True}),
-        "loop_closure": tconfig.config_from_overrides(**{"matching.pair_mode": "contiguous",
-                                                        "matching.loop_closure": True}),
         "devices": tconfig.config_from_overrides(devices=2),
         "engine_type": tconfig.config_from_overrides(engine_type="global"),
     }[what]

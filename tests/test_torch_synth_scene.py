@@ -55,3 +55,32 @@ def test_brown_ba_problem_projects_through_the_reference_lens():
                                            jnp.asarray(Xc.astype(np.float32))))
     res = got["obs_uv"] - want
     assert np.abs(res).max() < 2.5 and 0.4 < res.std() < 0.6
+
+
+def test_pod_ba_problem_equals_the_reference_scale_test():
+    """pod_ba_problem builds tests/test_pod_scale.py:26-45's arguments (the
+    reference's construction, replayed here at 40 cameras and 800 points
+    from tests/synth.py).  The axis-angle column agrees to 2e-6: under ten
+    float32 ulps of the angles near pi that this 355-degree orbit reaches."""
+    from tpusfm_torch.utils.synth_scene import pod_ba_problem
+
+    C, P = 40, 800
+    s = jax_orbit_scene(n_cams=C, n_points=P, noise_px=0.5, seed=4, arc_deg=355.0,
+                        vis_prob=0.04)
+    r = np.random.default_rng(1)
+    want = dict(intr=np.tile(s["intr"], (C, 1)),
+                cam_rot=np.asarray(s["aa"] + r.normal(scale=0.008, size=(C, 3)), np.float32),
+                cam_t=np.asarray(s["t"] + r.normal(scale=0.008, size=(C, 3)), np.float32),
+                cam_mask=np.ones(C, bool),
+                points=np.asarray(s["points"] + r.normal(scale=0.02, size=(P, 3)), np.float32),
+                point_mask=np.asarray(s["point_valid"]), obs_cam=s["obs_cam"],
+                obs_pt=s["obs_pt"], obs_uv=s["obs_uv"], obs_mask=np.ones(len(s["obs_cam"]), bool))
+    got, centers = pod_ba_problem(C, P)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(centers, np.asarray(s["centers"]))
+    for k, v in want.items():
+        if k == "cam_rot":
+            np.testing.assert_allclose(got[k], v, rtol=0, atol=2e-6)
+        else:
+            np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+        assert got[k].dtype == np.asarray(v).dtype, k

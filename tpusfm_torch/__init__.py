@@ -9,9 +9,13 @@ exception is the matcher kernel: ``tpusfm/ops/pallas_match.py`` becomes
 
 The port imports ``torch`` and never ``jax`` or the ``tpusfm`` package.
 Functions take tensors and run on the tensors' device; entry points that
-create state (``pipeline.sparse.run_sparse``) take the device explicitly.
-The slice ported so far is the sparse main path, ``run_sparse`` with the
-incremental engine.
+create state (``pipeline.sparse.run_sparse``, ``sfm.two_view.two_view_reconstruct``,
+``sfm.scene.load_scene_npz``, ``core.camera.make_intrinsics``) take the
+device explicitly.
+The slice ported so far is the sparse path: ``run_sparse`` with the
+incremental engine (loop-closure retrieval and the preemptive prefilter
+included), two-view reconstruction and the sparse modules' public
+helpers.
 """
 
 __version__ = "0.1.0"

@@ -23,8 +23,11 @@ per group, RADIAL3 through the fused K2 or any camera model (and more than
 the segment sums K6/K7, both preconditioners, and with ``pallas_gathers``
 the per-observation gathers through K8 and K9.  On the CPU,
 ``impl="auto"`` takes the plain PCG path, as the reference's
-``impl="xla"`` does.  The LM and CG loops are Python loops that read one
-convergence flag from the device per iteration.
+``impl="xla"`` does.  The plain path assembles the normal equations over
+chunks of ``obs_chunk`` observations, the table padded to a multiple with
+weight-0 rows as in the reference; the kernel path ignores the field.  The
+LM and CG loops are Python loops that read one convergence flag from the
+device per iteration.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ class BAConfig:
     lambda_max: float = 1e8
     converge_rtol: float = 3e-6    # accepted-step relative improvement = converged
     fix_first_cam: bool = True     # gauge: camera 0's pose is held
+    obs_chunk: int = 65536         # plain path: observations per assembly chunk (the table
+                                   # is padded to a multiple with weight-0 rows); the kernel
+                                   # path ignores it
     impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K9)
     precond: str = "hcc"           # kernel path's PCG preconditioner: "hcc" (damped Hcc
                                    # blocks) | "schur_diag" (exact S diagonal blocks)
@@ -225,11 +231,29 @@ def _pcg(matvec, b: dict, apply_M, iters: int, tol: float, aux0=None):
 # Normal-equation assembly
 # ---------------------------------------------------------------------------
 
+def _pad_obs(obs_cam, obs_pt, obs_uv, obs_mask, chunk: int, assume_sorted: bool):
+    """Pad the table to a multiple of `chunk` rows when it is longer than
+    one chunk: rows of camera 0 with weight 0, whose point id repeats the
+    last one under assume_sorted (obs_pt stays non-decreasing) and is 0
+    otherwise."""
+    O = obs_cam.shape[0]
+    if O <= chunk or O % chunk == 0:
+        return obs_cam, obs_pt, obs_uv, obs_mask
+    pad = chunk - O % chunk
+    pt_pad = obs_pt[-1:].expand(pad) if assume_sorted else obs_pt.new_zeros(pad)
+    return (torch.cat([obs_cam, obs_cam.new_zeros(pad)]), torch.cat([obs_pt, pt_pad]),
+            torch.cat([obs_uv, obs_uv.new_zeros((pad, 2))]),
+            torch.cat([obs_mask, obs_mask.new_zeros(pad)]))
+
+
 def _build_system(pose, gintr, points, refine_m, obs_cam, obs_grp, obs_pt, obs_uv, obs_w,
                   C, G, cfg: BAConfig):
     """Segment-summed normal-equation pieces plus the per-observation
-    coupling blocks Wc (O, 18) [and Wg (O, 3E)], in one pass over the obs
-    table."""
+    coupling blocks Wc (O, 18) [and Wg (O, 3E)].  The residuals and
+    Jacobians come from one jacfwd pass over the table; the per-observation
+    (D, D) products exist one chunk of cfg.obs_chunk observations at a
+    time (the reference scans its assembly over chunks for the same
+    reason)."""
     P = points.shape[0]
     D, E = POSE_DIM, gintr.shape[-1]
     refine = cfg.refine_intrinsics
@@ -240,16 +264,27 @@ def _build_system(pose, gintr, points, refine_m, obs_cam, obs_grp, obs_pt, obs_u
     r = r * w
     Jc = Jc * w[..., None]
     Jp = Jp * w[..., None]
-    acc["Hcc"] = segment_sum(torch.einsum("oki,okj->oij", Jc, Jc), obs_cam, C)
-    acc["Hpp"] = segment_sum(torch.einsum("oki,okj->oij", Jp, Jp), obs_pt, P)
-    acc["gc"] = segment_sum(torch.einsum("oki,ok->oi", Jc, r), obs_cam, C)
-    acc["gp"] = segment_sum(torch.einsum("oki,ok->oi", Jp, r), obs_pt, P)
-    acc["Wc"] = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3)
+    f32 = dict(dtype=pose.dtype, device=pose.device)
+    acc.update(Hcc=torch.zeros((C, D, D), **f32), Hpp=torch.zeros((P, 3, 3), **f32),
+               gc=torch.zeros((C, D), **f32), gp=torch.zeros((P, 3), **f32))
     if refine:
         Jg = Jg * (w[..., None] * refine_m[None, None, :])
-        acc["Hgg"] = segment_sum(torch.einsum("oki,okj->oij", Jg, Jg), obs_grp, G)
-        acc["Hcg"] = segment_sum(torch.einsum("oki,okj->oij", Jc, Jg), obs_cam, C)
-        acc["gg"] = segment_sum(torch.einsum("oki,ok->oi", Jg, r), obs_grp, G)
+        acc.update(Hgg=torch.zeros((G, E, E), **f32), Hcg=torch.zeros((C, D, E), **f32),
+                   gg=torch.zeros((G, E), **f32))
+    ch = max(cfg.obs_chunk, 1)
+    for s in range(0, obs_cam.shape[0], ch):
+        ocam, opt, jc, jp, rr = (x[s: s + ch] for x in (obs_cam, obs_pt, Jc, Jp, r))
+        acc["Hcc"].index_add_(0, ocam, torch.einsum("oki,okj->oij", jc, jc))
+        acc["Hpp"].index_add_(0, opt, torch.einsum("oki,okj->oij", jp, jp))
+        acc["gc"].index_add_(0, ocam, torch.einsum("oki,ok->oi", jc, rr))
+        acc["gp"].index_add_(0, opt, torch.einsum("oki,ok->oi", jp, rr))
+        if refine:
+            ogrp, jg = obs_grp[s: s + ch], Jg[s: s + ch]
+            acc["Hgg"].index_add_(0, ogrp, torch.einsum("oki,okj->oij", jg, jg))
+            acc["Hcg"].index_add_(0, ocam, torch.einsum("oki,okj->oij", jc, jg))
+            acc["gg"].index_add_(0, ogrp, torch.einsum("oki,ok->oi", jg, rr))
+    acc["Wc"] = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3)
+    if refine:
         acc["Wg"] = torch.einsum("oki,okj->oij", Jg, Jp).reshape(-1, E * 3)
     return acc
 
@@ -307,12 +342,16 @@ def _dense_eligible(C, G, P, cfg: BAConfig) -> bool:
     return dim <= cfg.dense_schur_max_dim and 2 * tables * 4 <= cfg.dense_schur_max_bytes
 
 
-def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C):
-    """Exact pose-diagonal blocks of S (block-Jacobi preconditioner)."""
+def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C, chunk: int):
+    """Exact pose-diagonal blocks of S (block-Jacobi preconditioner), over
+    chunks of `chunk` observations like the assembly."""
     D = Hcc_d.shape[-1]
-    W3 = Wc.reshape(-1, D, 3)
-    contrib = torch.einsum("oij,ojk,olk->oil", W3, Hpp_inv[obs_pt], W3)
-    return Hcc_d - segment_sum(contrib, obs_cam, C)
+    acc = torch.zeros_like(Hcc_d)
+    for s in range(0, obs_cam.shape[0], chunk):
+        W3 = Wc[s: s + chunk].reshape(-1, D, 3)
+        acc.index_add_(0, obs_cam[s: s + chunk],
+                       torch.einsum("oij,ojk,olk->oil", W3, Hpp_inv[obs_pt[s: s + chunk]], W3))
+    return Hcc_d - acc
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +648,10 @@ def bundle_adjust(
     gintr[cam_group] = intr
     refine_m = torch.as_tensor(cfg.refine_mask(E), dtype=intr.dtype, device=dev)
 
+    kernels = cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok)
+    if not kernels:
+        obs_cam, obs_pt, obs_uv, obs_mask = _pad_obs(obs_cam, obs_pt, obs_uv, obs_mask,
+                                                     max(cfg.obs_chunk, 1), cfg.assume_sorted)
     obs_cam = obs_cam.long()
     obs_pt = obs_pt.long()
     obs_w = obs_mask.to(torch.float32)
@@ -660,7 +703,8 @@ def bundle_adjust(
             dc, dg = _dense_schur_solve(Hcc_d, Hgg_d, Hcg, Hpp_inv, Wc3, Wg3, obs_cam, obs_grp,
                                         obs_pt, rhs_flat, upd_c, upd_g, cam_group, C, G, refine)
         else:
-            M_inv_c = _invD(_schur_diag_pose(Hcc_d, Hpp_inv, sys["Wc"], obs_cam, obs_pt, C))
+            M_inv_c = _invD(_schur_diag_pose(Hcc_d, Hpp_inv, sys["Wc"], obs_cam, obs_pt, C,
+                                             max(cfg.obs_chunk, 1)))
             M_inv_g = _invD(Hgg_d) if refine else None
 
             def apply_M(v):
@@ -700,7 +744,7 @@ def bundle_adjust(
         return dc, dg, dp
 
     mi = cfg.max_iters if max_iters is None else int(max_iters)
-    if cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok):
+    if kernels:
         ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
             pose0, gintr, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam, obs_grp,
             obs_pt, obs_uv, obs_w, C, G, cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
@@ -715,3 +759,13 @@ def bundle_adjust(
         "n_obs": torch.sum(obs_mask),
     }
     return gi[cam_group], ps[:, :3], ps[:, 3:6], pts, info
+
+
+def bundle_adjust_scene(scene, cfg: BAConfig = BAConfig(), cam_group=None, n_groups=None):
+    """``bundle_adjust`` over a ``sfm.scene.Scene``: returns (the scene with
+    refined intrinsics, poses and points, info)."""
+    intr, rot, t, pts, info = bundle_adjust(
+        scene.intr, scene.cam_rot, scene.cam_t, scene.cam_mask, scene.points, scene.point_mask,
+        scene.obs_cam, scene.obs_pt, scene.obs_uv, scene.obs_mask, cfg, cam_group=cam_group,
+        n_groups=n_groups)
+    return scene.replace(intr=intr, cam_rot=rot, cam_t=t, points=pts), info

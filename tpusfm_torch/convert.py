@@ -4,7 +4,8 @@ and scenes.
 SfM has no learned weights; its state is configuration, features and the
 scene.  These helpers read the reference's objects field by field
 (``dataclasses.fields``) and take numpy arrays, so this module imports
-nothing from jax or the reference package.
+nothing from jax or the reference package.  Scenes go through
+``sfm.scene.scene_from_numpy`` / ``scene_to_numpy`` (re-exported here).
 """
 
 from __future__ import annotations
@@ -16,14 +17,7 @@ import torch
 
 from .features.sift import Features
 from .pipeline.config import PipelineConfig
-from .sfm.scene import Scene
-
-_SCENE_DTYPES = {
-    "intr": torch.float32, "cam_rot": torch.float32, "cam_t": torch.float32,
-    "cam_mask": torch.bool, "points": torch.float32, "colors": torch.uint8,
-    "point_mask": torch.bool, "obs_cam": torch.int32, "obs_pt": torch.int32,
-    "obs_uv": torch.float32, "obs_mask": torch.bool,
-}
+from .sfm.scene import scene_from_numpy, scene_to_numpy  # noqa: F401 (re-exported)
 
 
 def _convert_dataclass(src, dst_type):
@@ -62,15 +56,3 @@ def features_from_numpy(kp, desc, score, mask, device) -> Features:
 
     return Features(kp=t(kp, torch.float32), desc=t(desc, torch.float32),
                     score=t(score, torch.float32), mask=t(mask, torch.bool))
-
-
-def scene_from_numpy(arrays: dict, device) -> Scene:
-    """A Scene from a dict of numpy arrays with the Scene field names (for
-    example ``tpusfm.sfm.scene.scene_to_numpy`` of a reference scene)."""
-    return Scene(**{k: torch.as_tensor(np.asarray(arrays[k]), device=device).to(dt)
-                    for k, dt in _SCENE_DTYPES.items()})
-
-
-def scene_to_numpy(scene: Scene) -> dict[str, np.ndarray]:
-    return {f.name: getattr(scene, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(scene)}

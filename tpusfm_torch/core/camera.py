@@ -17,6 +17,24 @@ FX, FY, CX, CY, K1, K2, K3 = range(7)
 NUM_INTR = 7
 
 
+def make_intrinsics(fx, fy=None, cx=0.0, cy=0.0, k1=0.0, k2=0.0, k3=0.0, *,
+                    device) -> torch.Tensor:
+    """The 7-lane RADIAL3 vector [fx, fy, cx, cy, k1, k2, k3] (float32) on
+    `device`; fy defaults to fx."""
+    fy = fx if fy is None else fy
+    return torch.tensor([fx, fy, cx, cy, k1, k2, k3], dtype=torch.float32, device=device)
+
+
+def k_matrix(intr: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 3, 3) calibration matrix K."""
+    fx, fy, cx, cy = intr[..., FX], intr[..., FY], intr[..., CX], intr[..., CY]
+    zeros = torch.zeros_like(fx)
+    ones = torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, zeros, cx], dim=-1),
+                        torch.stack([zeros, fy, cy], dim=-1),
+                        torch.stack([zeros, zeros, ones], dim=-1)], dim=-2)
+
+
 def distort_radial(intr: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
     """Apply radial distortion to normalized coords xn (..., 2)."""
     r2 = torch.sum(xn * xn, dim=-1, keepdim=True)
@@ -102,3 +120,9 @@ def project(intr: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     """Full world -> pixel projection."""
     x_cam = torch.einsum("...ij,...j->...i", R, x_world) + t
     return camera_to_pixel(intr, x_cam)
+
+
+def in_front(R: torch.Tensor, t: torch.Tensor, x_world: torch.Tensor) -> torch.Tensor:
+    """Cheirality test: positive depth in the camera frame."""
+    z = torch.einsum("...j,...j->...", R[..., 2, :], x_world) + t[..., 2]
+    return z > 0.0

@@ -58,3 +58,33 @@ def undistort_fisheye(params: torch.Tensor, xd: torch.Tensor, iters: int = 12,
         theta = theta - f / torch.where(torch.abs(df) < 1e-9, torch.full_like(df, 1e-9), df)
     r = torch.tan(theta)
     return xd * (r / theta_d)
+
+
+MODELS = ("pinhole", "radial1", "radial3", "brown", "fisheye")
+
+
+def undistort_to_pinhole(model: str, dist_params, xd: torch.Tensor) -> torch.Tensor:
+    """Distorted normalized coords (..., 2) of any model in MODELS to ideal
+    pinhole ones.  dist_params: [k1] / [k1, k2, k3] / [k1, k2, k3, t1, t2] /
+    [k1..k4] by model (None for pinhole, or zeros for radial)."""
+    from . import camera
+
+    if model == "pinhole":
+        return xd
+    if model in ("radial1", "radial3"):
+        if dist_params is None:
+            k = torch.zeros(xd.shape[:-2] + (3,), dtype=xd.dtype, device=xd.device)
+        else:
+            k = torch.as_tensor(dist_params, dtype=xd.dtype, device=xd.device)
+        if model == "radial1":  # [k1] or [k1, k2, k3]: k1 alone counts
+            k = torch.cat([k[..., :1], k.new_zeros(k.shape[:-1] + (2,))], dim=-1)
+        intr = torch.cat([torch.ones(k.shape[:-1] + (2,), dtype=k.dtype, device=k.device),
+                          torch.zeros(k.shape[:-1] + (2,), dtype=k.dtype, device=k.device), k],
+                         dim=-1)
+        return camera.undistort_radial(intr, xd)
+    params = torch.as_tensor(dist_params, dtype=xd.dtype, device=xd.device)
+    if model == "brown":
+        return undistort_brown(params, xd)
+    if model == "fisheye":
+        return undistort_fisheye(params, xd)
+    raise ValueError(f"unknown camera model {model!r} (supported: {MODELS})")

@@ -341,6 +341,18 @@ def sampson_error(F: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor) -> torch.
     return num * num / torch.clamp(denom, min=1e-12)
 
 
+def epipolar_distance(F: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """Symmetric point-to-epipolar-line squared distance.  F (..., 3, 3),
+    x0/x1 (..., N, 2) -> (..., N)."""
+    p0, p1 = _homog(x0), _homog(x1)
+    l1 = torch.einsum("...ij,...nj->...ni", F, p0)  # line in image 1
+    l0 = torch.einsum("...ji,...nj->...ni", F, p1)  # line in image 0
+    s = torch.einsum("...ni,...ni->...n", p1, l1)
+    d1 = s * s / torch.clamp(l1[..., 0] ** 2 + l1[..., 1] ** 2, min=1e-12)
+    d0 = s * s / torch.clamp(l0[..., 0] ** 2 + l0[..., 1] ** 2, min=1e-12)
+    return 0.5 * (d0 + d1)
+
+
 def decompose_essential(E: torch.Tensor):
     """E -> the four (R, t) candidates (R1,t), (R1,-t), (R2,t), (R2,-t).
     Returns (R (..., 4, 3, 3), t (..., 4, 3)) with unit-norm t."""

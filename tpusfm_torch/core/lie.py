@@ -108,6 +108,27 @@ def rotate_aa(aa: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return cos_t * x + sinc * cross + ccos * dot * aa
 
 
+def se3_apply(R: torch.Tensor, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Apply a rigid transform: (..., 3, 3) @ (..., 3) + (..., 3)."""
+    return torch.einsum("...ij,...j->...i", R, x) + t
+
+
+def se3_inv(R: torch.Tensor, t: torch.Tensor):
+    """Inverse rigid transform: (R, t) -> (R^T, -R^T t)."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def se3_compose(Ra: torch.Tensor, ta: torch.Tensor, Rb: torch.Tensor, tb: torch.Tensor):
+    """(Ra, ta) o (Rb, tb): first apply b, then a."""
+    return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def pose_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Stack (R | t) into a (..., 3, 4) matrix."""
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
 def camera_center(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """World-frame camera center C = -R^T t for world->camera pose (R, t)."""
     return -torch.einsum("...ji,...j->...i", R, t)

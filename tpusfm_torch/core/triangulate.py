@@ -94,3 +94,12 @@ def triangulate_n_view(P: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> 
     A2 = A.reshape(*A.shape[:-3], -1, 4)
     AtA = A2.transpose(-1, -2) @ A2
     return _dehomogenize(smallest_eigvec_sym(AtA))
+
+
+def triangulation_angle(C0: torch.Tensor, C1: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Parallax angle (radians) at X subtended by camera centers C0, C1."""
+    a = C0 - X
+    b = C1 - X
+    cos = torch.sum(a * b, dim=-1) / torch.clamp(
+        torch.linalg.norm(a, dim=-1) * torch.linalg.norm(b, dim=-1), min=1e-12)
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))

@@ -43,6 +43,21 @@ class SiftConfig:
     n_orientations: int = 1    # orientation peaks emitted per keypoint
 
 
+def preset(name: str, **overrides) -> SiftConfig:
+    """NORMAL / HIGH / ULTRA presets: peak threshold 0.04 / 0.01 / 0.01,
+    ULTRA also upsampling the input 2x (first_octave -1)."""
+    name = name.upper()
+    if name == "NORMAL":
+        cfg = SiftConfig(peak_thresh=0.04, first_octave=0)
+    elif name == "HIGH":
+        cfg = SiftConfig(peak_thresh=0.01, first_octave=0)
+    elif name == "ULTRA":
+        cfg = SiftConfig(peak_thresh=0.01, first_octave=-1)
+    else:
+        raise ValueError(f"unknown SIFT preset {name!r}")
+    return dataclasses.replace(cfg, **overrides)
+
+
 @dataclasses.dataclass
 class Features:
     """Fixed-capacity per-image feature set.

@@ -1,13 +1,17 @@
 """Descriptor matching: brute-force L2 top-2 with the Lowe ratio test.
 
 Port of ``tpusfm/matching/match.py`` — the plain path over the full
-distance matrix.  On the card the pipeline matches through the fused top-2
-kernel instead (``ops/topk2_match.py``), which never stores the matrix.
+distance matrix — plus ``match_on_device``, the one matcher every caller
+on a device uses: on the card it runs the fused top-2 kernel K1
+(``ops/topk2_match.py``), which never stores the matrix, and on the CPU
+the plain path.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops import topk2_match
 
 INF = 3.4e38
 
@@ -41,6 +45,31 @@ def match_descriptors(da: torch.Tensor, db: torch.Tensor, mask_a: torch.Tensor,
         arange = torch.arange(da.shape[-2], device=da.device)
         ok = ok & (torch.gather(j1, -1, i1) == arange)
     return i1.to(torch.int32), ok
+
+
+def match_on_device(da: torch.Tensor, db: torch.Tensor, mask_a: torch.Tensor,
+                    mask_b: torch.Tensor, ratio: float = 0.8, cross_check: bool = True):
+    """``match_descriptors`` on the tensors' device.  A CUDA batch of
+    128-wide descriptors goes through kernel K1's bf16 variant (two
+    launches with the cross-check), as the reference passes quantized=True
+    for SIFT's descriptors, which lie on the u8 grid where the bf16
+    product is exact; a CPU batch takes the plain matcher; any other device
+    raises."""
+    if da.device.type == "cuda":
+        if da.shape[-1] != topk2_match.D:
+            raise ValueError(f"the CUDA matcher takes {topk2_match.D}-wide descriptors, "
+                             f"got {da.shape[-1]}")
+        return topk2_match.match_descriptors_topk2(da, db, mask_a, mask_b, ratio=ratio,
+                                                   cross_check=cross_check, quantized=True)
+    if da.device.type != "cpu":
+        raise ValueError(f"no matcher for device {da.device}")
+    return match_descriptors(da, db, mask_a, mask_b, ratio=ratio, cross_check=cross_check)
+
+
+def match_counts(idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Number of accepted matches per pair: (..., Na) -> (...,) int32."""
+    del idx
+    return torch.sum(valid.to(torch.int32), dim=-1, dtype=torch.int32)
 
 
 def gather_matched_points(kp_a: torch.Tensor, kp_b: torch.Tensor, idx_b: torch.Tensor,

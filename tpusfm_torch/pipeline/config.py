@@ -23,10 +23,10 @@ class MatchingConfig:
     ratio: float = 0.8                 # NN distance ratio
     cross_check: bool = True
     pair_chunk: int = 32               # pairs per device batch
-    preemptive: bool = False           # not ported yet (raises)
+    preemptive: bool = False           # strongest-K prefilter before full matching
     preemptive_features: int = 200
     preemptive_min_matches: int = 4
-    loop_closure: bool = False         # not ported yet (raises)
+    loop_closure: bool = False         # add retrieval pairs (contiguous mode)
     loop_top_k: int = 3
     loop_min_sim: float = 0.5
 

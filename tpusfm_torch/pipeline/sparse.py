@@ -3,10 +3,13 @@
 Port of ``tpusfm/pipeline/sparse.py``, stage for stage:
 
   detect_features   batched SIFT on the device
-  generate_pairs    exhaustive / contiguous pair lists (host)
-  match_pairs       ratio-test matching with cross-check; on a CUDA device
-                    through the fused top-2 kernel K1, on the CPU through
-                    the plain full-distance-matrix matcher
+  generate_pairs    exhaustive / contiguous pair lists (host), plus
+                    loop-closure pairs by descriptor retrieval
+  match_pairs       ratio-test matching with cross-check through
+                    ``matching.match.match_on_device``: on a CUDA device
+                    the fused top-2 kernel K1, on the CPU the plain
+                    full-distance-matrix matcher; optionally after the
+                    preemptive prefilter
   filter_pairs      robust F/E/H RANSAC per pair, batched over pairs
   reconstruct       tracks + the incremental engine with bundle adjustment
   colorize          mean track color
@@ -16,14 +19,14 @@ TF32 off for float32 matrix products and convolutions (the SIFT blur would
 otherwise run in TF32 on the card and move extrema).  Chunk sizes follow
 the reference's rule so that both packages batch alike.  Not ported yet,
 each raising ``NotImplementedError``: the dense stage, engine types other
-than "incremental", more than one device, preemptive matching and
-loop-closure pairs.
+than "incremental" and more than one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -33,7 +36,6 @@ from ..core import epipolar, homography
 from ..features import sift
 from ..matching import match as match_mod
 from ..matching import pairs as pairs_mod
-from ..ops import topk2_match
 from ..sfm import incremental
 from ..sfm import ransac as ransac_mod
 from ..sfm import tracks as tracks_mod
@@ -66,27 +68,20 @@ def detect_features(images, cfg: PipelineConfig, progress=_noop_progress, masks=
 
 
 def generate_pairs(n_views: int, cfg: PipelineConfig, feats: sift.Features | None = None) -> np.ndarray:
-    if cfg.matching.pair_mode == "contiguous":
-        if cfg.matching.loop_closure:
-            raise NotImplementedError("matching.loop_closure is not ported yet")
-        return pairs_mod.contiguous_pairs(n_views, cfg.matching.contiguous_window)
+    """The pair list of cfg.matching.pair_mode.  Contiguous pairs with
+    loop_closure (and features, and more than two views) add the retrieval
+    pairs more than 2 * contiguous_window views apart, merged by np.unique."""
+    mcfg = cfg.matching
+    if mcfg.pair_mode == "contiguous":
+        pairs = pairs_mod.contiguous_pairs(n_views, mcfg.contiguous_window)
+        if mcfg.loop_closure and feats is not None and n_views > 2:
+            loops = pairs_mod.retrieval_pairs(feats.desc, feats.mask,
+                                              exclude=2 * mcfg.contiguous_window,
+                                              top_k=mcfg.loop_top_k, min_sim=mcfg.loop_min_sim)
+            if len(loops):
+                pairs = np.unique(np.concatenate([pairs, loops]), axis=0)
+        return pairs
     return pairs_mod.exhaustive_pairs(n_views)
-
-
-def _match_chunk(da, db, ma, mb, ratio, cross_check):
-    """A CUDA chunk with 128-wide descriptors goes through kernel K1's bf16
-    variant (two launches with the cross-check), as the reference passes
-    quantized=True: SIFT descriptors lie on the u8 grid, where it is exact.
-    A CPU chunk goes through the plain matcher."""
-    if da.device.type == "cuda":
-        if da.shape[-1] != topk2_match.D:
-            raise ValueError(f"the CUDA matcher takes {topk2_match.D}-wide descriptors, "
-                             f"got {da.shape[-1]}")
-        return topk2_match.match_descriptors_topk2(da, db, ma, mb, ratio=ratio,
-                                                   cross_check=cross_check, quantized=True)
-    if da.device.type != "cpu":
-        raise ValueError(f"no matcher for device {da.device}")
-    return match_mod.match_descriptors(da, db, ma, mb, ratio=ratio, cross_check=cross_check)
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -94,12 +89,50 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[:1], n - len(a), 0)]) if len(a) < n else a
 
 
+def _chunk_pairs(desc, mask, pl_pad):
+    """The descriptors and masks of a padded chunk of pairs, on their device."""
+    dev = desc.device
+    ia = torch.as_tensor(pl_pad[:, 0], device=dev).long()
+    ib = torch.as_tensor(pl_pad[:, 1], device=dev).long()
+    return desc[ia], desc[ib], mask[ia], mask[ib]
+
+
+def preemptive_filter_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: PipelineConfig,
+                            progress=_noop_progress) -> np.ndarray:
+    """Preemptive matching prefilter: match only the strongest
+    K = min(preemptive_features, N) features of each view (features are
+    score-sorted) in chunks of max(4 * pair_chunk, 32) pairs, and keep the
+    pairs with at least preemptive_min_matches accepted matches.  Returns
+    keep (P,) bool.
+
+    The reference runs this pass through its plain XLA matcher on every
+    backend; here it goes through ``match_on_device`` like full matching,
+    so on the card it is kernel K1's bf16 variant.  SIFT descriptors lie on
+    the u8 grid, where every squared distance is an exact integer in both,
+    so the keep mask is the same."""
+    mcfg = cfg.matching
+    K = min(mcfg.preemptive_features, feats.desc.shape[1])
+    P = len(pair_list)
+    keep = np.zeros(P, bool)
+    ch = max(mcfg.pair_chunk * 4, 32)
+    desc = feats.desc[:, :K].contiguous()
+    mask = feats.mask[:, :K].contiguous()
+    for s in range(0, P, ch):
+        pl = pair_list[s: s + ch]
+        idx, ok = match_mod.match_on_device(*_chunk_pairs(desc, mask, _pad_rows(pl, ch)),
+                                            mcfg.ratio, mcfg.cross_check)
+        counts = match_mod.match_counts(idx, ok).cpu().numpy()[: len(pl)]
+        keep[s: s + len(pl)] = counts >= mcfg.preemptive_min_matches
+        progress("preemptive", min(1.0, (s + ch) / P))
+    return keep
+
+
 def match_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: PipelineConfig,
                 progress=_noop_progress):
     """Ratio-test matching for every pair, chunked over the pair list.
-    Returns (match_idx (P, N) int32, match_valid (P, N) bool) on the host."""
-    if cfg.matching.preemptive:
-        raise NotImplementedError("matching.preemptive is not ported yet")
+    Returns (match_idx (P, N) int32, match_valid (P, N) bool) on the host.
+    With cfg.matching.preemptive, the pairs the prefilter drops are not
+    matched: their rows come back all invalid."""
     P = len(pair_list)
     N = feats.kp.shape[1]
     idx_out = np.zeros((P, N), np.int32)
@@ -109,17 +142,18 @@ def match_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: PipelineConfig
         ch = min(8 * ch, 256)
     elif P <= 256:
         ch = max(ch, 32 * ((P + 31) // 32))  # one batch for small collections
-    dev = feats.desc.device
-    for s in range(0, P, ch):
-        pl = pair_list[s: s + ch]
-        pl_pad = _pad_rows(pl, ch)
-        ia = torch.as_tensor(pl_pad[:, 0], device=dev).long()
-        ib = torch.as_tensor(pl_pad[:, 1], device=dev).long()
-        idx, ok = _match_chunk(feats.desc[ia], feats.desc[ib], feats.mask[ia], feats.mask[ib],
-                               cfg.matching.ratio, cfg.matching.cross_check)
-        idx_out[s: s + len(pl)] = idx.cpu().numpy()[: len(pl)]
-        valid_out[s: s + len(pl)] = ok.cpu().numpy()[: len(pl)]
-        progress("matching", min(1.0, (s + ch) / max(P, 1)))
+    rows = np.arange(P)
+    if cfg.matching.preemptive and P > 0:
+        rows = rows[preemptive_filter_pairs(feats, pair_list, cfg, progress)]
+    work = pair_list[rows]
+    for s in range(0, len(work), ch):
+        pl = work[s: s + ch]
+        idx, ok = match_mod.match_on_device(*_chunk_pairs(feats.desc, feats.mask, _pad_rows(pl, ch)),
+                                            cfg.matching.ratio, cfg.matching.cross_check)
+        out_rows = rows[s: s + len(pl)]
+        idx_out[out_rows] = idx.cpu().numpy()[: len(pl)]
+        valid_out[out_rows] = ok.cpu().numpy()[: len(pl)]
+        progress("matching", min(1.0, (s + ch) / max(len(work), 1)))
     return idx_out, valid_out
 
 
@@ -324,9 +358,11 @@ def run_sparse(images, intr, cfg: PipelineConfig = PipelineConfig(), *, device,
         "n_tracks": int(engine.T),
         "n_obs": int(scene.obs_mask.sum()),
         "n_pairs_kept": int(pair_ok.sum()),
+        "pair_list": pair_list,
         "pair_ok": pair_ok,
         "times_s": {k: round(v, 3) for k, v in times.items()},
         "recon_phase_s": {k: round(v, 3) for k, v in sorted(engine.timings.items())},
+        "ba_solves": dict(Counter(f"{kind} {c}x{p}x{o}" for kind, c, p, o in engine.ba_solves)),
         "engine_log": engine.log,
     }
     progress("done", 1.0, n_points=report["n_points"])

@@ -252,6 +252,10 @@ class IncrementalEngine:
         self.log: list[str] = []
         # Per-phase wall-clock accumulators (seconds).
         self.timings: dict[str, float] = {}
+        # Every BA solve as (kind, cameras, points, observations): kind is
+        # "step" (full map), "local" (the windowed step-BA, its bucketed
+        # shape) or "final".
+        self.ba_solves: list[tuple[str, int, int, int]] = []
 
         # Row-index structures (host, static for the run — registration only
         # flips masks): obs rows are view-major by construction, so each
@@ -691,7 +695,7 @@ class IncrementalEngine:
         if (self.O > cfg.ba_local_from_obs
                 and len(self._reg_order) > cfg.ba_local_window):
             return self._run_ba_local(cfg.step_ba_iters)
-        return self.run_ba(cfg.step_ba_iters)
+        return self.run_ba(cfg.step_ba_iters, kind="step")
 
     def _run_ba_local(self, iters: int):
         """Local bundle adjustment (COLMAP-style): optimize the last
@@ -737,6 +741,7 @@ class IncrementalEngine:
         b[1] = max(b[1], 4096 * ((len(pts_local) + 4095) // 4096))
         b[2] = max(b[2], 32768 * ((len(rows) + 32767) // 32768))
         Cl, Pl, Ol = b
+        self.ba_solves.append(("local", Cl, Pl, Ol))
         intr_l = np.zeros((Cl, self.intr.shape[1]), np.float32)
         aa_l = np.zeros((Cl, 3), np.float32)
         t_l = np.zeros((Cl, 3), np.float32)
@@ -780,7 +785,7 @@ class IncrementalEngine:
         self.points[pts_local] = pts[: len(pts_local)]
         return info
 
-    def run_ba(self, iters: int):
+    def run_ba(self, iters: int, kind: str = "final"):
         # Self-calibration gate: refining intrinsics off 2-3 registered
         # views is degenerate (focal/depth trade freely on a near-planar
         # bootstrap); freeze intrinsics until the map has enough views.
@@ -790,6 +795,7 @@ class IncrementalEngine:
         free = self.registered.copy()
         free[self.gauge_cam] = False
         args = self._scene_arrays()
+        self.ba_solves.append((kind, self.V, len(self.points), self.O))
         kw = {}
         if self.cam_group is not None:
             kw = dict(cam_group=self._dev(self.cam_group), n_groups=self.n_groups)

@@ -24,6 +24,8 @@ from typing import Callable
 
 import torch
 
+from ..core import epipolar, homography
+
 
 def _tree_map(fn, *trees):
     if isinstance(trees[0], tuple):
@@ -240,3 +242,50 @@ def ransac_ac(
     # NFA > 1 (log > 0): not meaningful, empty support.
     best_inl = best_inl & (best_nfa <= 0.0)[:, None]
     return best_model, best_inl, torch.sum(best_inl, -1), best_nfa / math.log(10.0), best_eps
+
+
+# ---------------------------------------------------------------------------
+# Ready-made robust estimators (the filter's f/e/h models), batched over
+# the leading axis; idx passes sample indices in, as for ``ransac``.
+# ---------------------------------------------------------------------------
+
+def ransac_fundamental(generator, uv0, uv1, valid, n_iters=512, thresh_px=4.0, idx=None):
+    """8-point fundamental RANSAC on pixel coordinates."""
+    return ransac(generator, uv0, uv1, valid, solver=epipolar.fundamental_8pt,
+                  scorer=epipolar.sampson_error, sample_size=8, n_iters=n_iters,
+                  inlier_thresh=thresh_px, idx=idx)
+
+
+def ransac_essential(generator, x0n, x1n, valid, n_iters=512, thresh_norm=4.0 / 800.0,
+                     idx=None):
+    """8-point essential RANSAC on normalized coordinates; the threshold
+    defaults to ~4 px at f = 800."""
+    return ransac(generator, x0n, x1n, valid, solver=epipolar.essential_8pt,
+                  scorer=epipolar.sampson_error, sample_size=8, n_iters=n_iters,
+                  inlier_thresh=thresh_norm, idx=idx)
+
+
+def ransac_homography(generator, uv0, uv1, valid, n_iters=512, thresh_px=4.0, idx=None):
+    """4-point DLT homography RANSAC on pixel coordinates."""
+    return ransac(generator, uv0, uv1, valid, solver=homography.homography_dlt,
+                  scorer=homography.homography_transfer_error, sample_size=4,
+                  n_iters=n_iters, inlier_thresh=thresh_px, idx=idx)
+
+
+def ransac_essential_5pt(generator, x0n, x1n, valid, n_iters=256, thresh_norm=4.0 / 800.0,
+                         idx=None):
+    """Minimal (Nister 5-point) essential RANSAC: up to ten hypotheses a
+    sample, the winner's inliers refit by the weighted 8-point."""
+    return ransac(generator, x0n, x1n, valid, solver=epipolar.essential_5pt,
+                  scorer=epipolar.sampson_error, sample_size=5, n_iters=n_iters,
+                  inlier_thresh=thresh_norm, n_candidates=10,
+                  refit_solver=epipolar.essential_8pt, idx=idx)
+
+
+def ransac_fundamental_7pt(generator, uv0, uv1, valid, n_iters=256, thresh_px=4.0, idx=None):
+    """Minimal 7-point fundamental RANSAC: up to three hypotheses a sample,
+    the winner's inliers refit by the weighted 8-point."""
+    return ransac(generator, uv0, uv1, valid, solver=epipolar.fundamental_7pt,
+                  scorer=epipolar.sampson_error, sample_size=7, n_iters=n_iters,
+                  inlier_thresh=thresh_px, n_candidates=3,
+                  refit_solver=epipolar.fundamental_8pt, idx=idx)

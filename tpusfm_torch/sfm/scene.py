@@ -3,13 +3,17 @@
 Port of ``tpusfm/sfm/scene.py``: cameras, points and the observation table
 (the BA working set) live in flat tensors with validity masks.  Pose
 convention: world -> camera, ``x_cam = R @ x_world + t``, rotation stored
-as axis-angle.
+as axis-angle.  Scenes go to and from numpy dicts and ``.npz`` files with
+the reference's field names and dtypes, so either package reads the
+other's files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
+import numpy as np
 import torch
 
 from ..core import camera as cam
@@ -71,3 +75,49 @@ def empty_scene(max_cams: int, max_points: int, max_obs: int, device) -> Scene:
 def camera_centers(scene: Scene) -> torch.Tensor:
     """World-frame centers of every camera slot. (C, 3)"""
     return scene.camera_centers()
+
+
+_DTYPES = {
+    "intr": torch.float32, "cam_rot": torch.float32, "cam_t": torch.float32,
+    "cam_mask": torch.bool, "points": torch.float32, "colors": torch.uint8,
+    "point_mask": torch.bool, "obs_cam": torch.int32, "obs_pt": torch.int32,
+    "obs_uv": torch.float32, "obs_mask": torch.bool,
+}
+
+
+def scene_to_numpy(scene: Scene) -> dict[str, np.ndarray]:
+    """Every field as a host numpy array, by field name."""
+    return {f.name: getattr(scene, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(scene)}
+
+
+def scene_from_numpy(arrays, device) -> Scene:
+    """A Scene on `device` from a mapping of arrays with the Scene field
+    names (a dict, an npz file; other keys are ignored)."""
+    return Scene(**{k: torch.as_tensor(np.asarray(arrays[k]), device=device).to(dt)
+                    for k, dt in _DTYPES.items()})
+
+
+def save_scene_npz(path: str, scene: Scene, extra: dict[str, Any] | None = None) -> None:
+    """Write the scene's fields, plus any `extra` arrays, compressed."""
+    arrays = scene_to_numpy(scene)
+    if extra:
+        arrays.update({k: np.asarray(v) for k, v in extra.items()})
+    np.savez_compressed(path, **arrays)
+
+
+def load_scene_npz(path: str, *, device) -> Scene:
+    """Read a scene written by ``save_scene_npz`` (of either package)."""
+    with np.load(path) as data:
+        return scene_from_numpy(data, device)
+
+
+def compact_points(scene: Scene) -> Scene:
+    """Move valid points to the front, in order, and remap obs_pt."""
+    P = scene.points.shape[0]
+    order = torch.argsort((~scene.point_mask).to(torch.int8), stable=True)
+    remap = torch.empty(P, dtype=torch.int32, device=order.device)
+    remap[order] = torch.arange(P, dtype=torch.int32, device=order.device)
+    return scene.replace(points=scene.points[order], colors=scene.colors[order],
+                         point_mask=scene.point_mask[order],
+                         obs_pt=remap[scene.obs_pt.long()])

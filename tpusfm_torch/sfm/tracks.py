@@ -1,14 +1,36 @@
 """Track building: fuse pairwise matches into multi-view tracks.
 
-Port of ``build_tracks`` of ``tpusfm/sfm/tracks.py`` — host-side integer
-bookkeeping in numpy (a vectorized connected-components pass over
-(view, feature) nodes), unchanged, so that the port stands alone without the
-JAX package.
+Port of ``tpusfm/sfm/tracks.py`` — host-side integer bookkeeping in numpy
+(a vectorized connected-components pass over (view, feature) nodes, the
+scalar union-find it replaces, and per-track observation lists), unchanged,
+so that the port stands alone without the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class UnionFind:
+    """Scalar union-find with path compression (the reference for
+    build_tracks' vectorized pass)."""
+
+    def __init__(self, n: int):
+        self.parent = np.arange(n, dtype=np.int64)
+
+    def find(self, i: int) -> int:
+        p = self.parent
+        root = i
+        while p[root] != root:
+            root = p[root]
+        while p[i] != root:  # path compression
+            p[i], i = root, p[i]
+        return root
+
+    def union(self, a: int, b: int) -> None:
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.parent[rb] = ra
 
 
 def build_tracks(
@@ -78,3 +100,18 @@ def build_tracks(
     sel = tids >= 0
     track_ids[views[sel], feats[sel]] = tids[sel].astype(np.int32)
     return track_ids, int(keep.sum())
+
+
+def track_observations(track_ids: np.ndarray, kp_xy: np.ndarray):
+    """track_ids (V, N), kp_xy (V, N, 2) -> per-track observation lists:
+    dict track -> (views (L,) int32, uv (L, 2) float32)."""
+    out: dict[int, tuple[list[int], list[np.ndarray]]] = {}
+    vs, fs = np.nonzero(track_ids >= 0)
+    for v, f in zip(vs, fs):
+        t = int(track_ids[v, f])
+        if t not in out:
+            out[t] = ([], [])
+        out[t][0].append(int(v))
+        out[t][1].append(kp_xy[v, f])
+    return {t: (np.asarray(v, np.int32), np.asarray(u, np.float32))
+            for t, (v, u) in out.items()}

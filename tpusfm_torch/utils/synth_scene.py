@@ -159,3 +159,26 @@ def point_sorted_ba_problem(n_cams: int, n_points: int, seed: int = 3, arc_deg: 
         obs_uv=obs_uv,
         obs_mask=np.ones(len(s["obs_cam"]), bool),
     ))
+
+
+def pod_ba_problem(n_cams: int = 1000, n_points: int = 40000, seed: int = 4,
+                   vis_prob: float = 0.04):
+    """The reference's pod-scale BA problem (``tests/test_pod_scale.py:26-45``):
+    a 355-degree orbit with 0.5 px noise, poses perturbed by 0.008 and
+    points by 0.02 (numpy seed 1), the table camera-major as the scene
+    gives it.  Returns (the numpy arguments of ``bundle_adjust``, the true
+    camera centers)."""
+    s = orbit_scene(n_cams=n_cams, n_points=n_points, noise_px=0.5, seed=seed, arc_deg=355.0,
+                    vis_prob=vis_prob)
+    r = np.random.default_rng(1)
+    args = dict(
+        intr=np.tile(s["intr"], (n_cams, 1)),
+        cam_rot=(s["aa"] + r.normal(scale=0.008, size=(n_cams, 3))).astype(np.float32),
+        cam_t=(s["t"] + r.normal(scale=0.008, size=(n_cams, 3))).astype(np.float32),
+        cam_mask=np.ones(n_cams, bool),
+        points=(s["points"] + r.normal(scale=0.02, size=(n_points, 3))).astype(np.float32),
+        point_mask=s["point_valid"],
+        obs_cam=s["obs_cam"], obs_pt=s["obs_pt"], obs_uv=s["obs_uv"],
+        obs_mask=np.ones(len(s["obs_cam"]), bool),
+    )
+    return args, s["centers"]
