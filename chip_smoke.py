@@ -26,6 +26,23 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    views, ATE <= 0.05 (scene radius 8), > 1000 points, finite geometry,
    and that K1 launched, its bf16 variant only (counts reset just before
    the run, read just after; every 200-view run below asserts the same);
+   then the dense and mesh stages on that run's scene
+   (tpusfm_torch.tools.dense_rung, the reference bench's dense rung,
+   bench.py:243-349): dense_reconstruct over the first 6 registered views
+   with DenseConfig(n_planes=64, n_sources=3, view_batch=2,
+   pm=PatchMatchConfig(n_iters=3)) (half-resolution sweep and coarse
+   PatchMatch, one fine full-resolution iteration) after a warm-up, and
+   with patchmatch=False (full-resolution sweep); prints each stage's
+   seconds (host clock, device sync at each stage end), views/s, fused
+   points and the median relative depth error against the renderer's
+   depth; asserts the PatchMatch error <= 0.006 and >= 300,000 finite fused
+   points; writes and reads back dense.ply; then mesh_from_depths (grid
+   128), refine_mesh, refine_mesh_photometric, texture_mesh and mesh.ply,
+   with each stage's seconds, asserting > 1000 faces and a textured share
+   above 0.5; then torch.profiler over one more dense_reconstruct: the 10
+   device kernels with the most time, the launch count and the busy share
+   (device time over an unprofiled run's wall time).  The dense and mesh
+   stages have no hand-written kernel (the reference runs them as XLA);
 5. the 200-view slice: run_sparse once over the reference's medium rung
    (200 views 240x320, contiguous pairs, bench.py:383-389) with the
    intrinsics held; asserts >= 190/200 views, ATE <= 0.10, > 1000 points,
@@ -474,20 +491,15 @@ def _only_bf16_k1(counts: dict, label: str) -> None:
                              f"{counts['topk2_match f32']} as f32; the path takes bf16 only")
 
 
-def phase_slice20(entry: dict) -> None:
+def phase_slice20(entry: dict):
+    """Returns the run's scene, images and ground truth for the dense phase."""
     import torch
 
-    from tpusfm_torch.pipeline.config import config_from_overrides
     from tpusfm_torch.pipeline.sparse import run_sparse
-    from tpusfm_torch.utils.synth_render import render_orbit_images
+    from tpusfm_torch.tools.dense_rung import headline_inputs
 
-    n_views, h, w = 20, 480, 640
-    images, gt = render_orbit_images(n_views=n_views, img_h=h, img_w=w, focal=0.9 * w,
-                                     arc_deg=110.0, seed=0)
-    cfg = config_from_overrides(**{
-        "sift.n_octaves": 4, "sift.max_per_octave": 1024, "sift.max_features": 1024,
-        "matching.pair_chunk": 32, "filter.max_iterations": 256, "feature_batch": 10,
-    })
+    n_views = 20
+    images, gt, cfg = headline_inputs(480, 640, n_views)
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -505,6 +517,73 @@ def phase_slice20(entry: dict) -> None:
     entry["launches"] = launches
     _check_quality(scene, report, gt, n_views, 19, 0.05, "20-view run")
     print(f"  K1 launches {launches}, wall {wall:.2f} s (first run_sparse in the process)")
+    return scene, images, gt
+
+
+# The dense phase's bars: the PatchMatch median relative depth error of the
+# matched CPU sweep in the reference's README (0.0061 there, round 5), the
+# fused points and faces a dense rung must at least give, and the
+# reference's texturing test's share (tests/test_texturing.py).
+DENSE_MAX_ERR = 0.006
+DENSE_MIN_POINTS = 300_000
+MESH_MIN_FACES = 1000
+MESH_MIN_TEXTURED = 0.5
+
+
+def phase_dense(card: str, scene, images, gt) -> None:
+    """The dense rung after the 20-view run: PatchMatch and sweep-only
+    dense_reconstruct over its first 6 registered views, the mesh stage on
+    the PatchMatch maps, and a torch.profiler table of one dense run."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpusfm_torch.io import ply
+    from tpusfm_torch.tools import dense_rung
+
+    t0 = time.time()
+    out = dense_rung.run_dense(scene, images, gt, device="cuda")
+    pm, sw = out["pm"], out["sweep_only"]
+    for label, r in (("dense PM", pm), ("dense sweep-only", sw)):
+        print(f"{label} ({card}): views {out['views']}, {r['seconds']:.3f} s, "
+              f"{r['views_per_s']:.3f} views/s, fused points {r['points']}, median relative "
+              f"depth error {r['depth_med_rel_err']}")
+        print(f"  stage_s {json.dumps({k: round(v, 4) for k, v in r['stage_s'].items()})}")
+    pts = out["points"]
+    if pm["depth_med_rel_err"] is None or not pm["depth_med_rel_err"] <= DENSE_MAX_ERR:
+        raise AssertionError(f"dense PM depth error {pm['depth_med_rel_err']} > {DENSE_MAX_ERR}")
+    if pm["points"] < DENSE_MIN_POINTS or not np.isfinite(pts).all():
+        raise AssertionError(f"dense PM: {pm['points']} fused points (< {DENSE_MIN_POINTS}) "
+                             f"or non-finite")
+    if sw["depth_med_rel_err"] is None or sw["points"] == 0:
+        raise AssertionError(f"dense sweep-only: error {sw['depth_med_rel_err']}, "
+                             f"{sw['points']} points")
+    rgb = np.repeat((np.clip(images, 0, 1) * 255).astype(np.uint8)[..., None], 3, -1)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        n = ply.write_ply_points(Path(tmp) / "dense.ply", pts)
+        back, _ = ply.read_ply_points(Path(tmp) / "dense.ply")
+        if n != len(pts) or not np.array_equal(back, pts):
+            raise AssertionError("dense.ply did not read back as written")
+        mesh = dense_rung.run_mesh(out["maps"], rgb, tmp, device="cuda")
+        if not (Path(tmp) / "mesh.ply").exists():
+            raise AssertionError("mesh.ply was not written")
+    print(f"mesh ({card}): {mesh['verts']} vertices, {mesh['faces']} faces, textured share "
+          f"{mesh['textured_share']:.4f}")
+    print(f"  stage_s {json.dumps({k: round(v, 4) for k, v in mesh['stage_s'].items()})}")
+    if (mesh["faces"] <= MESH_MIN_FACES or not mesh["textured_share"] > MESH_MIN_TEXTURED
+            or not mesh["finite"]):
+        raise AssertionError(f"mesh: {mesh['faces']} faces, textured share "
+                             f"{mesh['textured_share']}, finite {mesh['finite']}")
+    prof = dense_rung.profile_dense(scene, images, out["views"], device="cuda")
+    print(f"dense profile ({card}): wall {prof['wall_s']:.3f} s, device {prof['device_ms']:.1f} "
+          f"ms in {prof['launches']} launches, busy share {prof['busy_share']:.4f}")
+    for name, n, ms in prof["top"]:
+        print(f"  {ms:10.3f} ms {n:7d} x {1e3 * ms / max(n, 1):8.1f} us  "
+              f"{dense_rung.op_name(name)}")
+    if not prof["launches"]:
+        print("  the profiler kept no kernel record of the dense run")
+    print(f"  dense phase wall {time.time() - t0:.1f} s")
 
 
 def _variant(name: str, a: tuple, k: dict) -> str:
@@ -1491,7 +1570,7 @@ def main() -> int:
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
                          "bound_by": None, "library_ms": None, "device_ms": None,
                          "library_device_ms": None}
-    phase_slice20(entries["topk2_match"])
+    phase_dense(card, *phase_slice20(entries["topk2_match"]))
     captured = phase_slice200(entries)
     cap_a = phase_selfcal200(entries, FOCAL_START)
     cap_g = phase_gathers200(entries)

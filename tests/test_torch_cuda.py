@@ -876,3 +876,156 @@ def test_1000_camera_ba_through_the_kernels_on_card(dev):
     assert rmse < 0.8, rmse
     ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(rot), t).cpu().numpy(), centers)
     assert ate < 0.01, ate
+
+
+# ---------------------------------------------------------------------------
+# The dense and mesh stages: plain PyTorch on the card against the same code
+# on the CPU, with the same draws (CPU generators) and the CPU parity tests'
+# tolerances.
+# ---------------------------------------------------------------------------
+
+def _dense_room(h=96, w=128):
+    """tests/test_patchmatch.py's corner room at h x w: images, ground
+    truth, and the port's scene with true poses and 150 projected points."""
+    import torch as _torch
+
+    from tpusfm_torch.core import lie
+    from tpusfm_torch.sfm.scene import empty_scene
+
+    images, gt = render_orbit_images(n_views=5, img_h=h, img_w=w, focal=0.8 * w, arc_deg=40.0,
+                                     seed=4)
+    V = len(images)
+    rng = np.random.default_rng(0)
+    X = rng.uniform([-2.2] * 3, [2.2] * 3, (150, 3)).astype(np.float32)
+    oc, op = [], []
+    for v in range(V):
+        Xc = X @ gt["R"][v].T + gt["t"][v]
+        uv = Xc[:, :2] / Xc[:, 2:] * gt["intr"][0] + np.array([w / 2, h / 2])
+        vis = (Xc[:, 2] > 1) & (uv[:, 0] > 0) & (uv[:, 0] < w) & (uv[:, 1] > 0) & (uv[:, 1] < h)
+        oc += [v] * int(vis.sum())
+        op += np.nonzero(vis)[0].tolist()
+    f32 = dict(dtype=_torch.float32)
+    sc = empty_scene(V, 150, len(oc), "cpu").replace(
+        intr=_torch.as_tensor(np.tile(gt["intr"], (V, 1)), **f32),
+        cam_rot=lie.so3_log(_torch.as_tensor(gt["R"], **f32)),
+        cam_t=_torch.as_tensor(gt["t"], **f32), cam_mask=_torch.ones(V, dtype=_torch.bool),
+        points=_torch.as_tensor(X), point_mask=_torch.ones(150, dtype=_torch.bool),
+        obs_cam=_torch.as_tensor(oc, dtype=_torch.int32),
+        obs_pt=_torch.as_tensor(op, dtype=_torch.int32),
+        obs_mask=_torch.ones(len(oc), dtype=_torch.bool))
+    return images, gt, sc
+
+
+def _share_within(got, want, tol):
+    return float(np.mean(np.abs(got - want) <= tol))
+
+
+@pytest.mark.parametrize("fine", [False, True])
+def test_patchmatch_refine_on_card_matches_cpu(dev, fine):
+    from tpusfm_torch.dense import depth as tdepth
+    from tpusfm_torch.dense import patchmatch as tpm
+
+    images, gt, _ = _dense_room()
+    v, srcs = 2, [1, 3, 0]
+    H, W = images.shape[1:]
+    K = np.array([[gt["intr"][0], 0, gt["intr"][2]], [0, gt["intr"][1], gt["intr"][3]],
+                  [0, 0, 1]], np.float32)
+    R_rel = np.einsum("sij,kj->sik", gt["R"][srcs], gt["R"][v]).astype(np.float32)
+    t_rel = (gt["t"][srcs] - np.einsum("sij,j->si", R_rel, gt["t"][v])).astype(np.float32)
+    norm = tdepth.local_normalize(torch.as_tensor(images), 5)
+    Ks = torch.as_tensor(np.tile(K, (3, 1, 1)))
+    d0, _ = tdepth.plane_sweep_depth(norm[v], norm[srcs], torch.as_tensor(K), Ks,
+                                     torch.as_tensor(R_rel), torch.as_tensor(t_rel),
+                                     torch.linspace(1 / 9.0, 1 / 2.5, 24),
+                                     tdepth.DenseConfig(n_sources=3))
+    gen = torch.Generator().manual_seed(11)
+    draws = [tpm.draw_half_sweep(gen, H, W // 2, fine, "cpu") for _ in range(4)]
+    n_init = None
+    if fine:
+        n_init = torch.zeros(H, W, 3)
+        n_init[..., 2] = -1.0
+    cfg = tpm.PatchMatchConfig(n_iters=2, fine=fine)
+    args = [torch.as_tensor(images[v]), torch.as_tensor(images[srcs]), torch.as_tensor(K), Ks,
+            torch.as_tensor(R_rel), torch.as_tensor(t_rel), 1.0 / d0]
+    want = tpm.patchmatch_refine(*args, 1 / 9.0, 1 / 2.5, None, cfg, n_init, draws=draws)
+    got = tpm.patchmatch_refine(*[a.to(dev) for a in args], 1 / 9.0, 1 / 2.5, None, cfg,
+                                None if n_init is None else n_init.to(dev),
+                                draws=[{k: x.to(dev) for k, x in d.items()} for d in draws])
+    assert all(x.device.type == "cuda" for x in got)
+    (dg, cg, ng), (dw, cw, nw) = ([x.cpu().numpy() for x in o] for o in (got, want))
+    assert _share_within(dg / dw, 1.0, 1e-3) >= 0.99
+    assert _share_within(cg, cw, 1e-3) >= 0.99
+    assert _share_within(np.abs(ng - nw).max(-1), 0.0, 1e-3) >= 0.99
+
+
+@pytest.mark.parametrize("coarse_px", [120_000, 5_000])
+def test_dense_reconstruct_on_card_matches_cpu(dev, coarse_px):
+    """One seed gives the same draws on both devices (CPU generators per
+    view and level); at 5,000 px the coarse-to-fine path runs.  A
+    PatchMatch near-tie can flip on either device and the coarse level's
+    flips pass on to the fine one, so the float16 maps agree within 1e-3
+    on 98% of the pixels both keep, the masks on 99%, the fused counts
+    within 2%; both meet tests/test_patchmatch.py's bars."""
+    from tpusfm_torch.dense import depth as tdepth
+    from tpusfm_torch.dense import patchmatch as tpm
+
+    images, gt, sc = _dense_room()
+    cfg = tdepth.DenseConfig(n_planes=32, n_sources=3, pm=tpm.PatchMatchConfig(n_iters=2),
+                             pm_coarse_px=coarse_px)
+    outs = []
+    for device in ("cpu", dev):
+        timings = {}
+        outs.append(tdepth.dense_reconstruct(sc, images, None, cfg, views=[1, 2, 3],
+                                             return_maps=True, device=device, timings=timings))
+        assert (timings["pm_coarse"] > 0) == (coarse_px < 96 * 128)
+    (pw, _, mw), (pg, _, mg) = outs
+    both = mw["valid"] & mg["valid"]
+    assert _share_within(mg["depths"][both] / mw["depths"][both], 1.0, 1e-3) >= 0.98
+    assert np.mean(mg["valid"] == mw["valid"]) >= 0.99
+    assert abs(len(pg) - len(pw)) <= 0.02 * len(pw) and len(pw) > 1000
+    for pts in (pw, pg):
+        Xc = pts @ gt["R"][2].T + gt["t"][2]
+        u = np.round(Xc[:, 0] / Xc[:, 2] * gt["intr"][0] + 64).astype(int)
+        w_ = np.round(Xc[:, 1] / Xc[:, 2] * gt["intr"][0] + 48).astype(int)
+        inb = (u >= 0) & (u < 128) & (w_ >= 0) & (w_ < 96) & (Xc[:, 2] > 0)
+        zgt = gt["depth"][2][w_[inb], u[inb]]
+        fin = np.isfinite(zgt)
+        assert np.median(np.abs(Xc[inb, 2][fin] - zgt[fin]) / zgt[fin]) < 0.015
+
+
+def test_tsdf_fuse_and_photo_sweep_on_card_match_cpu(dev):
+    from tpusfm_torch.dense import meshing as tmesh
+
+    images, gt = render_orbit_images(n_views=6, img_h=64, img_w=88, focal=0.8 * 88,
+                                     arc_deg=70.0, seed=4)
+    depths = gt["depth"].copy()
+    depths[~(np.isfinite(depths) & (depths < 50))] = 0.0
+    K = np.array([[gt["intr"][0], 0, 44], [0, gt["intr"][1], 32], [0, 0, 1]], np.float32)
+    cpu = [torch.as_tensor(np.array(a, np.float32)) for a in (depths, K, gt["R"], gt["t"],
+                                                              [-3.0, -3.0, -3.0])]
+    grid = (np.float32(6.0 / 47), np.float32(18.0 / 47), 48)
+    want = tmesh.tsdf_fuse(*cpu, *grid)
+    got = tmesh.tsdf_fuse(*[a.to(dev) for a in cpu], *grid)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert _share_within(g.cpu().numpy(), w.numpy(), 1e-5) >= 0.9999
+    tsdf, wsum = (x.numpy() for x in want)
+    verts, _ = tmesh.marching_tetrahedra(tsdf, wsum >= 1.0, np.full(3, -3.0), 6.0 / 47)
+    rng = np.random.default_rng(1)
+    N = min(len(verts), 400)
+    vn = rng.normal(size=(N, 3))
+    vn /= np.linalg.norm(vn, axis=1, keepdims=True)
+    t1 = np.cross(vn, [0.0, 0.0, 1.0])
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    t2 = np.cross(vn, t1)
+    cpu = [torch.as_tensor(np.array(a, np.float32)) for a in (verts[:N], vn, t1, t2)]
+    cpu += [torch.as_tensor(np.stack([rng.permutation(6)[:4] for _ in range(N)])),
+            torch.as_tensor((rng.random((N, 4)) > 0.2).astype(np.float32)),
+            torch.as_tensor(images), torch.as_tensor(np.tile(K, (6, 1, 1))),
+            torch.as_tensor(gt["R"].astype(np.float32)),
+            torch.as_tensor(gt["t"].astype(np.float32))]
+    want = tmesh._photo_sweep(*cpu, np.float32(0.1), np.float32(0.05), 9)
+    got = tmesh._photo_sweep(*[a.to(dev) for a in cpu], np.float32(0.1), np.float32(0.05), 9)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4)

@@ -85,11 +85,23 @@ def test_config_defaults_match_reference():
     assert ported == tconfig.PipelineConfig()
     small = convert.config_from_jax(jconfig.config_from_overrides(**OVERRIDES))
     assert small == tconfig.config_from_overrides(**OVERRIDES)
-    # A reference field the port lacks raises only when it left its default.
+    # The dense stage's config crosses, its nested PatchMatchConfig too.
+    jdense = jconfig.PipelineConfig().dense
     dense_off = dataclasses.replace(jconfig.PipelineConfig(), dense=dataclasses.replace(
-        jconfig.PipelineConfig().dense, n_planes=32))
-    with pytest.raises(NotImplementedError, match="dense"):
-        convert.config_from_jax(dense_off)
+        jdense, n_planes=32, pm=dataclasses.replace(jdense.pm, n_iters=3, fine=True)))
+    got = convert.config_from_jax(dense_off).dense
+    tdense = tconfig.PipelineConfig().dense
+    assert got == dataclasses.replace(tdense, n_planes=32, pm=dataclasses.replace(
+        tdense.pm, n_iters=3, fine=True))
+
+    # A reference field the port lacks raises only when it left its default.
+    @dataclasses.dataclass(frozen=True)
+    class WithExtra(jconfig.PipelineConfig):
+        extra_stage: int = 0
+
+    assert convert.config_from_jax(WithExtra()) == tconfig.PipelineConfig()
+    with pytest.raises(NotImplementedError, match="extra_stage"):
+        convert.config_from_jax(WithExtra(extra_stage=1))
 
 
 @pytest.mark.parametrize("what", ["devices", "engine_type"])

@@ -12,10 +12,12 @@ Functions take tensors and run on the tensors' device; entry points that
 create state (``pipeline.sparse.run_sparse``, ``sfm.two_view.two_view_reconstruct``,
 ``sfm.scene.load_scene_npz``, ``core.camera.make_intrinsics``) take the
 device explicitly.
-The slice ported so far is the sparse path: ``run_sparse`` with the
-incremental engine (loop-closure retrieval and the preemptive prefilter
-included), two-view reconstruction and the sparse modules' public
-helpers.
+Ported so far: the sparse path (``run_sparse`` with the incremental
+engine, loop-closure retrieval and the preemptive prefilter included),
+two-view reconstruction, the sparse modules' public helpers, and the dense
+and mesh stages that follow (``dense.depth.dense_reconstruct``,
+``dense.meshing``, ``dense.texturing``, ``io.ply``), whose entry points take
+``device`` and default to ``"cuda"``.
 """
 
 __version__ = "0.1.0"

@@ -42,9 +42,9 @@ def _convert_dataclass(src, dst_type):
 
 
 def config_from_jax(cfg) -> PipelineConfig:
-    """A reference ``PipelineConfig`` as the port's, field by field.  A
-    reference field the port lacks (such as ``dense``) raises only when it
-    differs from the reference's default."""
+    """A reference ``PipelineConfig`` as the port's, field by field, nested
+    configs (``dense`` and its ``pm``) included.  A reference field the
+    port lacks raises only when it differs from the reference's default."""
     return _convert_dataclass(cfg, PipelineConfig)
 
 

@@ -1,5 +1,6 @@
 """Image array ops: separable Gaussian blur, decimation, bilinear resize and
-sampling, gradients.
+sampling, gradients, and the full-image undistortion remap of the dense
+stage.
 
 Port of ``tpusfm/ops/image.py``.  The blur keeps the reference's layout and
 edge semantics: NCHW, edge-replicate padding (``F.pad(mode="replicate")``),
@@ -80,6 +81,67 @@ def bilinear_sample(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torc
         + img[y1, x0] * fy * (1 - fx)
         + img[y1, x1] * fy * fx
     )
+
+
+def bilinear_sample_level(vol: torch.Tensor, lvl, y: torch.Tensor, x: torch.Tensor,
+                          h_lim=None, w_lim=None) -> torch.Tensor:
+    """Bilinear gather from level lvl of a stack vol (L, H, W) at float
+    coords y, x.  h_lim/w_lim (optional int scalars or tensors) clamp the
+    coordinates to the level's true extent [0, h_lim) x [0, w_lim), as for
+    levels of different sizes zero-padded into one stack."""
+    h, w = vol.shape[-2:]
+    hi = torch.as_tensor(h if h_lim is None else h_lim, device=y.device) - 1
+    wi = torch.as_tensor(w if w_lim is None else w_lim, device=x.device) - 1
+    y = torch.minimum(torch.clamp(y, min=0.0), hi.to(y.dtype))
+    x = torch.minimum(torch.clamp(x, min=0.0), wi.to(x.dtype))
+    y0 = torch.floor(y).long()
+    x0 = torch.floor(x).long()
+    y1 = torch.minimum(y0 + 1, hi)
+    x1 = torch.minimum(x0 + 1, wi)
+    fy = y - y0
+    fx = x - x0
+    return (
+        vol[lvl, y0, x0] * (1 - fy) * (1 - fx)
+        + vol[lvl, y0, x1] * (1 - fy) * fx
+        + vol[lvl, y1, x0] * fy * (1 - fx)
+        + vol[lvl, y1, x1] * fy * fx
+    )
+
+
+def undistort_image(image: torch.Tensor, intr: torch.Tensor, fill: float = 0.0,
+                    model: str = "auto") -> torch.Tensor:
+    """Resample a captured (distorted) image onto the ideal pinhole grid:
+    output pixel p takes the bilinear value at K distort(K^-1 p), the
+    forward distortion of p's ideal ray, so the remap needs no inversion.
+
+    image (H, W) or (H, W, C) float; intr (7,) fx fy cx cy k1 k2 k3, or
+    (9,) Brown [.. t1 t2] / fisheye [.. k1..k4 0] by `model`.  Samples
+    more than half a pixel outside the frame get `fill`."""
+    from ..core import camera as _cam
+    from ..core import distortion as _dist
+
+    h, w = image.shape[:2]
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=image.device),
+                            torch.arange(w, dtype=torch.float32, device=image.device),
+                            indexing="ij")
+    f = torch.stack([intr[0], intr[1]])
+    c = torch.stack([intr[2], intr[3]])
+    xn = (torch.stack([xs, ys], dim=-1) - c) / f
+    m = _cam._resolve_model(intr, model)
+    if m == "fisheye":
+        xd = _dist.distort_fisheye(intr[4:8], xn)
+    elif m == "brown":
+        xd = _dist.distort_brown(intr[4:9], xn)
+    else:
+        xd = _cam.distort_radial(intr, xn)
+    src = xd * f + c
+    sx, sy = src[..., 0], src[..., 1]
+    inb = (sx > -0.5) & (sx < w - 0.5) & (sy > -0.5) & (sy < h - 0.5)
+    if image.dim() == 2:
+        return torch.where(inb, bilinear_sample(image, sy, sx), torch.full_like(sx, fill))
+    out = torch.stack([bilinear_sample(image[..., ch], sy, sx) for ch in range(image.shape[-1])],
+                      dim=-1)
+    return torch.where(inb[..., None], out, torch.full_like(out, fill))
 
 
 def bilinear_sample_level_ch(vol: torch.Tensor, bidx: torch.Tensor, lvl: torch.Tensor,

@@ -1,9 +1,8 @@
 """Pipeline configuration (port of ``tpusfm/pipeline/config.py``).
 
-Frozen dataclasses with the reference's field names and defaults.  The
-dense stage's ``DenseConfig`` is not part of the port's config until the
-dense slice is ported (``convert.config_from_jax`` raises if a reference
-config changes it).
+Frozen dataclasses with the reference's field names and defaults, the
+dense stage's ``DenseConfig`` (with its nested ``PatchMatchConfig``)
+included.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ import dataclasses
 import json
 from typing import Literal
 
+from ..dense.depth import DenseConfig
 from ..features.sift import SiftConfig
 from ..sfm.incremental import IncrementalConfig
 
@@ -49,6 +49,7 @@ class PipelineConfig:
     matching: MatchingConfig = dataclasses.field(default_factory=MatchingConfig)
     filter: GeometricFilterConfig = dataclasses.field(default_factory=GeometricFilterConfig)
     engine: IncrementalConfig = dataclasses.field(default_factory=IncrementalConfig)
+    dense: DenseConfig = dataclasses.field(default_factory=DenseConfig)
     engine_type: Literal["incremental", "global", "stellar"] = "incremental"  # only incremental is ported
     focal_prior_px: float | None = None
     feature_batch: int = 8             # views per SIFT batch

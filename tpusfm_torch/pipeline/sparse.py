@@ -18,8 +18,9 @@ Port of ``tpusfm/pipeline/sparse.py``, stage for stage:
 TF32 off for float32 matrix products and convolutions (the SIFT blur would
 otherwise run in TF32 on the card and move extrema).  Chunk sizes follow
 the reference's rule so that both packages batch alike.  Not ported yet,
-each raising ``NotImplementedError``: the dense stage, engine types other
-than "incremental" and more than one device.
+each raising ``NotImplementedError``: engine types other than
+"incremental" and more than one device.  The dense and mesh stages that
+follow are ``dense.depth.dense_reconstruct`` and ``dense.meshing``.
 """
 
 from __future__ import annotations
