@@ -121,7 +121,32 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    unpadded table;
 18. tests/test_pod_scale.py's 1000-camera BA problem single-device through
    the kernels (BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)):
-   rmse < 0.8 px, ATE < 0.01; LM iterations per second.
+   rmse < 0.8 px, ATE < 0.01; LM iterations per second;
+19. service A (tpusfm_torch.tools.service_rung rung A): the port's HTTP
+   service on 127.0.0.1 at a free port with a fresh workspace; the 20-view
+   480x640 orbit POSTed to /upload as PNG (multipart), focal prior at its
+   focal, the dense rung's DenseConfig; GET /preprocessing, /sparse,
+   /dense, /mesh in turn, each waited on through /status (busy None,
+   error None, a deadline), one /event frame read; asserts from the
+   workspace >= 19/20 registered, ATE <= 0.05, > 1000 points (scene.npz),
+   the sparse, COLMAP, report, viewer, dense (>= 300,000 finite points in
+   dense.ply), depth-map, mesh (> 1000 faces in mesh.ply) and textured
+   OBJ/MTL/atlas artifacts present and non-empty, /files/colorized.ply
+   downloaded, K1 launched bf16 only (counts reset just before); prints
+   each stage's wall seconds;
+20. service B (rung B): the medium rung's 200 views as EXIF JPEG
+   photographs (quality 95: Make/Model of the sensor database, the focal
+   as FocalLength, a GPS fix at each true centre, 1 unit = 1 m) through
+   /upload, /preprocessing and /sparse: >= 190/200 registered, ATE <= 0.10,
+   > 1000 points, refined fx within 1% of the truth, report.json's geo
+   present with >= 190 fixes and rms under 1 m, K1 bf16 only, and K2 held
+   and refine, K5 with D = 6 and 7, K3 and K4 launched in the run (counts
+   reset just before); prints the decoders that ran (native or PIL), the
+   stage and engine-phase seconds;
+21. CLI: ``python -m tpusfm_torch.cli reconstruct`` as a child process
+   over the first 6 frames of service A with --focal and no --device:
+   exit 0, >= 5 registered in its report.json, which names a CUDA device,
+   as does its stderr (the card is the default).
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
@@ -1541,6 +1566,148 @@ FOCAL_START = 1.0
 FX_TOL = 0.01
 
 
+def _mesh_faces(path) -> int:
+    """The face count in a PLY mesh header."""
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"element face"):
+                return int(line.split()[2])
+            if line.startswith(b"end_header"):
+                break
+    return 0
+
+
+SERVICE_ARTIFACTS = (
+    "scene.npz", "colorized.ply", "report.json", "report.html", "viewer.html", "dense.ply",
+    "depth_maps.npz", "mesh.ply", "textured_mesh.obj", "textured_mesh.mtl", "textured_mesh.png",
+    "colmap/cameras.txt", "colmap/images.txt", "colmap/points3D.txt")
+
+
+def _service_common(out: dict, label: str, card: str) -> None:
+    """Every service run: the upload saved every file, the colorized PLY
+    downloaded, an /event frame came, and what ran where."""
+    if not out["colorized_download"] or not out["sse"]:
+        raise AssertionError(f"{label}: /files/colorized.ply {out['colorized_download']}, "
+                             f"/event frames {out['sse']}")
+    print(f"{label} ({card}): uploaded {out['uploaded']} in {out['upload_s']:.2f} s; stage "
+          f"seconds (service) {json.dumps(out['stage_s'])}, (client, trigger to idle) "
+          f"{json.dumps(out['client_stage_s'])}; decoders {json.dumps(out['decoders'])}; "
+          f"first /event frame {json.dumps(out['sse'][0])}")
+
+
+def phase_service_a(card: str) -> list:
+    """Service A: the reference service's whole user flow on the 20-view
+    orbit.  Returns the uploaded files for the CLI phase."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpusfm_torch.io import ply
+    from tpusfm_torch.tools import service_rung as sr
+
+    files, gt, cfg = sr.rung_a_inputs()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        ws = Path(tmp)
+        _reset_counts()
+        out = sr.drive(files, cfg, ("preprocessing", "sparse", "dense", "mesh"), ws,
+                       device="cuda", deadline_s=900)
+        counts = _counts()
+        _only_bf16_k1(counts, "service A")
+        _service_common(out, "service A", card)
+        q = sr.scene_quality(ws, gt)
+        print(f"  registered {q['registered']}/{q['views']}, ATE {q['ate']:.5f}, points "
+              f"{q['points']}, K1 launches {counts['topk2_match']}")
+        if q["registered"] < 19 or not q["ate"] <= 0.05 or q["points"] <= 1000 or not q["finite"]:
+            raise AssertionError(f"service A quality: {q}")
+        empty = [a for a in SERVICE_ARTIFACTS if not (ws / a).is_file()
+                 or (ws / a).stat().st_size == 0]
+        if empty:
+            raise AssertionError(f"service A: missing or empty artifacts {empty}")
+        pts, _ = ply.read_ply_points(ws / "dense.ply")
+        faces = _mesh_faces(ws / "mesh.ply")
+        n_fin = int(np.isfinite(pts).all(axis=1).sum())
+        print(f"  dense.ply {len(pts)} points ({n_fin} finite), mesh.ply {faces} faces")
+        if n_fin < DENSE_MIN_POINTS or n_fin != len(pts) or faces <= MESH_MIN_FACES:
+            raise AssertionError(f"service A: dense {len(pts)} points ({n_fin} finite), "
+                                 f"mesh {faces} faces")
+    return files
+
+
+def phase_service_b(card: str) -> None:
+    """Service B: the 200-view rung as a user's EXIF+GPS photographs."""
+    import tempfile
+    from pathlib import Path
+
+    from tpusfm_torch.tools import service_rung as sr
+
+    t0 = time.time()
+    files, gt, cfg = sr.rung_b_inputs(200)
+    print(f"service B inputs: {len(files)} JPEGs, {sum(len(b) for _, b in files)} bytes, "
+          f"{time.time() - t0:.1f} s to render and encode")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        ws = Path(tmp)
+        _reset_counts()
+        with _recording(None) as (solves, calls):
+            out = sr.drive(files, cfg, ("preprocessing", "sparse"), ws, device="cuda",
+                           deadline_s=900)
+        counts = _counts()
+        _only_bf16_k1(counts, "service B")
+        _service_common(out, "service B", card)
+        q = sr.scene_quality(ws, gt)
+        report = json.loads((ws / "report.json").read_text())
+    geo = report["geo"]
+    fx_rel = q["intr"][0] / float(gt["intr"][0]) - 1.0
+    print(f"  registered {q['registered']}/{q['views']}, ATE {q['ate']:.5f}, points "
+          f"{q['points']}, refined fx {q['intr'][0]:.3f} ({fx_rel:+.5f}), geo {json.dumps(geo)}")
+    print(f"  recon_phase_s {json.dumps(report['recon_phase_s'])}, sparse elapsed_s "
+          f"{report['elapsed_s']}, device {report['device']}")
+    print(f"  launches {json.dumps(counts)}; kernel calls by variant "
+          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}; "
+          f"_lm_kernels solves {len(solves)}")
+    if (q["registered"] < 190 or not q["ate"] <= 0.10 or q["points"] <= 1000
+            or not q["finite"] or not abs(fx_rel) <= FX_TOL):
+        raise AssertionError(f"service B quality: {q}, fx {fx_rel:+.5f}")
+    if geo is None or geo["n_gps"] < 190 or not geo["rms_m"] < 1.0:
+        raise AssertionError(f"service B geo-registration: {geo}")
+    need = [("linearize_reduce_radial3_t", "held"), ("linearize_reduce_radial3_t", "refine"),
+            ("schur_fwd_t", "D=6"), ("schur_fwd_t", "D=7")]
+    if any(calls[k] == 0 for k in need) or not counts["schur_mv_t"] or not counts["schur_bwd_t"]:
+        raise AssertionError(f"service B: a kernel of the path did not launch: {counts}, "
+                             f"{dict(calls)}")
+
+
+def phase_cli(card: str, files: list) -> None:
+    """The CLI as a child process with no --device: the card by default."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        imgs = Path(tmp) / "frames"
+        imgs.mkdir()
+        for name, data in files[:6]:
+            (imgs / name).write_bytes(data)
+        ws = Path(tmp) / "ws"
+        focal = 0.9 * 640
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "tpusfm_torch.cli", "reconstruct", str(imgs),
+                            "--workspace", str(ws), "--focal", str(focal)],
+                           cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"CLI exited {r.returncode}: {r.stderr[-2000:]}")
+        report = json.loads((ws / "report.json").read_text())
+    named = [line for line in r.stderr.splitlines() if "device" in line]
+    print(f"CLI reconstruct ({card}): exit 0 in {wall:.1f} s (a fresh process), registered "
+          f"{report['n_registered']}/{report['n_views']}, points {report['n_points']}, "
+          f"report device {report['device']}; stderr: {named}")
+    if report["n_registered"] < 5 or not report["device"].startswith("cuda") \
+            or not any("cuda" in line for line in named):
+        raise AssertionError(f"CLI run: {report['n_registered']} registered on "
+                             f"{report['device']}, stderr {named}")
+
+
 def main() -> int:
     t_start = time.time()
     card = phase_device()
@@ -1588,6 +1755,11 @@ def main() -> int:
     phase_pod_kernels(card, cap_pod, local, entries)
     del cap_pod, local
     phase_pod_ba(card)
+    t_svc = time.time()
+    files = phase_service_a(card)
+    phase_service_b(card)
+    phase_cli(card, files)
+    print(f"service and CLI phases wall {time.time() - t_svc:.1f} s")
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

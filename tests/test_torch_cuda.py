@@ -1029,3 +1029,38 @@ def test_tsdf_fuse_and_photo_sweep_on_card_match_cpu(dev):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4)
+
+
+def test_service_on_card_runs_the_sparse_stage(dev, tmp_path):
+    """The port's HTTP service on the card over tests/test_service.py's
+    6-view 240x320 orbit: upload, /preprocessing, /sparse; the stage ends
+    without error, K1 launched as bf16 only, and 5 of the 6 views register
+    at ATE < 0.05: the staged pipeline self-calibrates one group, and on
+    this scene both packages' staged runs register 5/6 on the CPU
+    (tests/test_torch_staged.py holds the counts equal)."""
+    from tpusfm_torch.service.http_server import start_background
+    from tpusfm_torch.tools.service_rung import Client, png_bytes, run_stages, scene_quality
+
+    images, gt = render_orbit_images(n_views=6, img_h=240, img_w=320, focal=0.9 * 320,
+                                     arc_deg=60.0, seed=1)
+    cfg = config_from_overrides(**{
+        "sift.n_octaves": 3, "sift.max_per_octave": 512, "sift.max_features": 768,
+        "matching.pair_chunk": 16, "filter.max_iterations": 128, "feature_batch": 3,
+        "focal_prior_px": 0.9 * 320})
+    httpd, state, port = start_background(str(tmp_path), cfg, host="127.0.0.1")
+    try:
+        assert state.pipeline.device.type == "cuda"  # the default
+        client = Client(port)
+        files = [(f"view_{i:03d}.png", png_bytes(img)) for i, img in enumerate(images)]
+        assert client.post_multipart("/upload", files)[0] == 200
+        before = dict(topk2_match.LAUNCHES)
+        run_stages(client, ("preprocessing", "sparse"), 300)
+        st = client.get_json("/status")[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert st["error"] is None and st["device"].startswith("cuda")
+    q = scene_quality(tmp_path, gt)
+    assert q["registered"] == 5 and q["ate"] < 0.05, q
+    assert topk2_match.LAUNCHES["quantized"] > before["quantized"]
+    assert topk2_match.LAUNCHES["f32"] == before["f32"]

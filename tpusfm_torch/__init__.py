@@ -14,10 +14,14 @@ create state (``pipeline.sparse.run_sparse``, ``sfm.two_view.two_view_reconstruc
 device explicitly.
 Ported so far: the sparse path (``run_sparse`` with the incremental
 engine, loop-closure retrieval and the preemptive prefilter included),
-two-view reconstruction, the sparse modules' public helpers, and the dense
+two-view reconstruction, the sparse modules' public helpers, the dense
 and mesh stages that follow (``dense.depth.dense_reconstruct``,
-``dense.meshing``, ``dense.texturing``, ``io.ply``), whose entry points take
-``device`` and default to ``"cuda"``.
+``dense.meshing``, ``dense.texturing``, ``io.ply``), and the staged
+workspace pipeline with its I/O, the HTTP service and the CLI
+(``pipeline.staged``, ``io.{images,native_ingest,colmap,reports,viewer}``,
+``utils.{events,result,geo}``, ``pipeline.checkpoint``,
+``service.http_server``, ``cli``).  Entry points that run stages take
+``device`` and default to ``"cuda"``; with no CUDA device they raise.
 """
 
 __version__ = "0.1.0"

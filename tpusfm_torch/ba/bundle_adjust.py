@@ -64,17 +64,21 @@ class BAConfig:
     obs_chunk: int = 65536         # plain path: observations per assembly chunk (the table
                                    # is padded to a multiple with weight-0 rows); the kernel
                                    # path ignores it
+    axis_name: str | None = None   # mesh axis of a sharded observation table; only None
+                                   # (one device) is ported, anything else raises
     impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K9)
+    pallas_interpret: bool = False  # kept so the two packages write the same config.json;
+                                    # the CPU runs the kernels' twins, True raises
     precond: str = "hcc"           # kernel path's PCG preconditioner: "hcc" (damped Hcc
                                    # blocks) | "schur_diag" (exact S diagonal blocks)
+    pallas_gathers: bool = False   # kernel path: the unfused linearization's and schur_diag's
+                                   # per-observation gathers go through K8 (tables of at most
+                                   # 4096 rows) and K9 (the rank-space point table)
     w_dtype: str = "bf16"          # kernel path: storage of the coupling table W ("bf16" | "f32")
     assume_sorted: bool = False    # kernel path: obs_pt is already non-decreasing and dense
                                    # (every id up to max(obs_pt) has a row; unobserved points
                                    # only trail), so the per-solve sort is skipped and
                                    # fractional obs weights are honoured
-    pallas_gathers: bool = False   # kernel path: the unfused linearization's and schur_diag's
-                                   # per-observation gathers go through K8 (tables of at most
-                                   # 4096 rows) and K9 (the rank-space point table)
     fused_linearize: bool = True   # kernel path: RADIAL3 with at most 2048 cameras and groups
                                    # linearizes through the fused K2; False takes the unfused
                                    # path (jacfwd reduced by K6 and K7)
@@ -631,6 +635,12 @@ def bundle_adjust(
     info) with info = {'initial_cost', 'final_cost', 'lambda', 'iterations',
     'n_obs'}; the returned intr is per camera, gathered from the group
     table."""
+    if cfg.axis_name is not None:
+        raise NotImplementedError("BAConfig.axis_name (a sharded observation table) is not "
+                                  "ported yet")
+    if cfg.pallas_interpret:
+        raise NotImplementedError("BAConfig.pallas_interpret: the port has no interpret mode; "
+                                  "a tensor on the CPU runs the kernels' plain twins")
     dev = intr.device
     C = intr.shape[0]
     P = points.shape[0]

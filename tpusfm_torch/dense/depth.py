@@ -298,7 +298,7 @@ def dense_reconstruct(scene, images, rgb_images, cfg: DenseConfig = DenseConfig(
     V, H, W = images.shape
     cam_mask = _np(scene.cam_mask)
     reg = np.nonzero(cam_mask)[0]
-    views = [v for v in (views if views is not None else reg) if cam_mask[v]]
+    views = [int(v) for v in (views if views is not None else reg) if cam_mask[v]]
     intr = _np(scene.intr)
     Ks = np.zeros((V, 3, 3), np.float32)
     Ks[:, 0, 0] = intr[:V, 0]

@@ -73,6 +73,10 @@ class Features:
     def replace(self, **kw) -> "Features":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def n_valid(self) -> torch.Tensor:
+        return self.mask.to(torch.int32).sum(dim=-1)
+
 
 def _stable_topk(x: torch.Tensor, k: int):
     """Largest k along the last axis, ties in index order."""
@@ -267,7 +271,7 @@ def _orientations(grad, bidx, lvl, x, y, sigma, hl, wl, cfg: SiftConfig):
     lin = torch.linspace(-1.0, 1.0, G, device=dev)
     du = lin[None, :] * win_r
     dv = lin[:, None] * win_r
-    ma = imops.bilinear_sample_level_ch(
+    ma = imops.bilinear_sample_batch_level_ch(
         grad, bidx[..., None, None], lvl[..., None, None], y[..., None, None] + dv,
         x[..., None, None] + du, hl[..., None, None], wl[..., None, None])
     m, a = ma[..., 0], ma[..., 1]
@@ -323,7 +327,7 @@ def _descriptors(grad, bidx, lvl, x, y, sigma, theta, hl, wl, cfg: SiftConfig):
     st = torch.sin(theta)[..., None, None]
     xs = x[..., None, None] + (ct * nx - st * ny) * sbp
     ys = y[..., None, None] + (st * nx + ct * ny) * sbp
-    ma = imops.bilinear_sample_level_ch(
+    ma = imops.bilinear_sample_batch_level_ch(
         grad, bidx[..., None, None], lvl[..., None, None], ys, xs,
         hl[..., None, None], wl[..., None, None])
     m, a = ma[..., 0], ma[..., 1]

@@ -1,1 +1,1 @@
-"""File I/O (port of ``tpusfm/io``; ``ply`` so far)."""
+"""File I/O (port of ``tpusfm/io``)."""

@@ -144,14 +144,26 @@ def undistort_image(image: torch.Tensor, intr: torch.Tensor, fill: float = 0.0,
     return torch.where(inb[..., None], out, torch.full_like(out, fill))
 
 
-def bilinear_sample_level_ch(vol: torch.Tensor, bidx: torch.Tensor, lvl: torch.Tensor,
-                             y: torch.Tensor, x: torch.Tensor,
-                             h_lim: torch.Tensor, w_lim: torch.Tensor) -> torch.Tensor:
-    """Bilinear gather from a channel-packed stack vol (B, L, H, W, C) at
-    image bidx, level lvl and float coords y, x (all broadcastable).  The
-    sample coordinates are clamped to the level's true extent
-    [0, h_lim) x [0, w_lim) (edge-replicate against the true border, never
-    reading the zero padding of smaller octaves).  Returns (..., C)."""
+def bilinear_sample_level_ch(vol: torch.Tensor, lvl, y: torch.Tensor, x: torch.Tensor,
+                             h_lim=None, w_lim=None) -> torch.Tensor:
+    """``bilinear_sample_level`` over a channel-packed stack vol (L, H, W, C):
+    one gather fetches all C channels.  h_lim/w_lim (optional ints or
+    tensors) clamp the coordinates to the level's true extent.  Returns
+    (..., C)."""
+    h, w = vol.shape[-3:-1]
+    bidx = torch.zeros((), dtype=torch.long, device=vol.device)
+    h_lim = torch.as_tensor(h if h_lim is None else h_lim, device=vol.device)
+    w_lim = torch.as_tensor(w if w_lim is None else w_lim, device=vol.device)
+    return bilinear_sample_batch_level_ch(vol[None], bidx, lvl, y, x, h_lim, w_lim)
+
+
+def bilinear_sample_batch_level_ch(vol: torch.Tensor, bidx: torch.Tensor, lvl: torch.Tensor,
+                                   y: torch.Tensor, x: torch.Tensor,
+                                   h_lim: torch.Tensor, w_lim: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sample_level_ch`` over a batch of stacks vol (B, L, H, W,
+    C) at image bidx (SIFT samples every image's pyramid in one gather).
+    The coordinates are clamped to [0, h_lim) x [0, w_lim), all arguments
+    broadcast.  Returns (..., C)."""
     hm = (h_lim - 1).to(y.dtype)
     wm = (w_lim - 1).to(x.dtype)
     y = torch.minimum(torch.clamp(y, min=0.0), hm)

@@ -4,8 +4,9 @@ wrappers of the CUDA kernels K2-K9 and their plain PyTorch twins.
 Port of the part of ``tpusfm/ops/obs_table.py`` that ``_lm_pallas`` runs
 for a single-device solve, and of its ops-layer entry points:
 
-- ``sort_and_rank_payload`` (XLA in the reference, plain torch here): the
-  per-solve point sort and rank compaction of the observation table;
+- ``sort_and_rank`` and ``sort_and_rank_payload`` (XLA in the reference,
+  plain torch here): the per-solve point sort and rank compaction of the
+  observation table;
 - ``linearize_reduce_radial3_t`` (K2): RADIAL3 residuals, closed-form pose,
   point (and, with ``refine``, intrinsic) Jacobians, Huber IRLS weights
   and cost for every observation, reduced to packed per-camera, per-rank
@@ -90,21 +91,13 @@ _FULL77 = _full_idx(7)   # 49 ints into 28 packed columns
 # Sort and rank (plain torch: XLA in the reference)
 # ---------------------------------------------------------------------------
 
-def sort_and_rank_payload(seg_ids: torch.Tensor, valid: torch.Tensor, n_segments: int,
-                          payloads: tuple):
-    """Stable sort of the table by segment id, invalid rows last, carrying
-    payload columns; ranks are the sorted ids compacted to 0, 1, 2, ...
-    and invalid rows get rank 2^30.
-
-    Returns (payloads_sorted, seg_sorted, ranks, rank_to_seg, rank_valid);
-    seg_sorted is the sorted id column (junk where invalid), rank_to_seg
-    (n_segments,) the id of each rank (0 where not rank_valid)."""
+def _sort_and_rank(seg_ids: torch.Tensor, valid: torch.Tensor, n_segments: int):
+    """``sort_and_rank`` that also returns the sorted id column."""
     dev = seg_ids.device
     seg = seg_ids.to(torch.int32)
     key = torch.where(valid, seg, torch.full_like(seg, INVALID_RANK))
     key_s, order = torch.sort(key, stable=True)
     seg_sorted = seg[order]
-    payloads_s = tuple(p[order] for p in payloads)
     valid_s = key_s < INVALID_RANK
     newflag = torch.ones_like(key_s)
     newflag[1:] = (key_s[1:] != key_s[:-1]).to(torch.int32)
@@ -115,7 +108,29 @@ def sort_and_rank_payload(seg_ids: torch.Tensor, valid: torch.Tensor, n_segments
         0, ranks_c, seg_sorted)[:n_segments]
     rank_valid = torch.zeros(n_segments + 1, dtype=torch.bool, device=dev).scatter_(
         0, ranks_c, valid_s)[:n_segments]
-    return payloads_s, seg_sorted, ranks, rank_to_seg, rank_valid
+    return order, seg_sorted, ranks, rank_to_seg, rank_valid
+
+
+def sort_and_rank(seg_ids: torch.Tensor, valid: torch.Tensor, n_segments: int):
+    """Stable sort of the table by segment id, invalid rows last; ranks are
+    the sorted ids compacted to 0, 1, 2, ... and invalid rows get rank 2^30.
+
+    Returns (order (O,), ranks (O,), rank_to_seg (n_segments,), rank_valid
+    (n_segments,)): the sorting permutation, the rank of each sorted row,
+    the id of each rank (0 where not rank_valid) and which ranks are real."""
+    order, _, ranks, rank_to_seg, rank_valid = _sort_and_rank(seg_ids, valid, n_segments)
+    return order, ranks, rank_to_seg, rank_valid
+
+
+def sort_and_rank_payload(seg_ids: torch.Tensor, valid: torch.Tensor, n_segments: int,
+                          payloads: tuple):
+    """``sort_and_rank`` carrying payload columns through the sort.
+
+    Returns (payloads_sorted, seg_sorted, ranks, rank_to_seg, rank_valid);
+    seg_sorted is the sorted id column (junk where invalid)."""
+    order, seg_sorted, ranks, rank_to_seg, rank_valid = _sort_and_rank(seg_ids, valid,
+                                                                       n_segments)
+    return tuple(p[order] for p in payloads), seg_sorted, ranks, rank_to_seg, rank_valid
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Pipeline configuration and the sparse entry point."""
+"""Pipeline configuration, the sparse entry point, the staged workspace pipeline and checkpoints."""

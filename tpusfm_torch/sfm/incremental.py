@@ -480,6 +480,15 @@ class IncrementalEngine:
         self.t[reg] = _to_host(scene.cam_t)[: self.V][reg]
         si = _to_host(scene.intr)[: self.V]
         self.intr[reg] = si[reg]
+        if self.cam_group is not None:
+            # Every camera of a seeded group takes the group's seeded block:
+            # BA reads a group's intrinsics from any one member.  (The
+            # reference seeds registered cameras only, so a group's
+            # unregistered members keep the prior, BA projects the seeded
+            # views through it, and the wash drops the seeded map.)
+            for g in np.unique(self.cam_group[: len(reg)][reg]):
+                members = self.cam_group == g
+                self.intr[members] = si[np.nonzero(reg & members[: len(reg)])[0][0]]
         pm = _to_host(scene.point_mask)
         n = min(len(pm), len(self.point_active))
         self.point_active[:n] = pm[:n]

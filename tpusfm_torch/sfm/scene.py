@@ -37,6 +37,30 @@ class Scene:
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def max_cams(self) -> int:
+        return self.intr.shape[0]
+
+    @property
+    def max_points(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def max_obs(self) -> int:
+        return self.obs_cam.shape[0]
+
+    @property
+    def n_cams(self) -> torch.Tensor:
+        return self.cam_mask.to(torch.int32).sum()
+
+    @property
+    def n_points(self) -> torch.Tensor:
+        return self.point_mask.to(torch.int32).sum()
+
+    @property
+    def n_obs(self) -> torch.Tensor:
+        return self.obs_mask.to(torch.int32).sum()
+
     def rotations(self) -> torch.Tensor:
         return lie.so3_exp(self.cam_rot)
 

@@ -1,1 +1,1 @@
-"""Host-side helpers: metrics and synthetic scenes."""
+"""Host-side helpers: metrics, synthetic scenes, events, results and geo-registration."""

@@ -1,7 +1,6 @@
 """Evaluation metrics: similarity alignment and trajectory error.
 
-Port of ``umeyama_alignment`` and ``ate_rmse`` of ``tpusfm/utils/metrics.py``
-(host numpy).  Reconstruction is defined up to a similarity transform, so
+Port of ``tpusfm/utils/metrics.py`` (host numpy).  Reconstruction is defined up to a similarity transform, so
 trajectories are Umeyama-aligned before the error is taken.
 """
 
@@ -40,3 +39,15 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, with_scale: bool =
     aligned = (s * (R @ np.asarray(est_centers, np.float64).T)).T + t
     err = aligned - gt_centers
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def rotation_error_deg(R_est: np.ndarray, R_gt: np.ndarray) -> np.ndarray:
+    """Per-camera geodesic rotation error in degrees, gauge-free: each
+    rotation is taken relative to camera 0's in both sets."""
+    R_est = np.asarray(R_est, np.float64)
+    R_gt = np.asarray(R_gt, np.float64)
+    rel_est = np.einsum("nij,kj->nik", R_est, R_est[0])
+    rel_gt = np.einsum("nij,kj->nik", R_gt, R_gt[0])
+    dR = np.einsum("nij,nkj->nik", rel_est, rel_gt)
+    tr = np.clip((np.trace(dR, axis1=1, axis2=2) - 1.0) * 0.5, -1.0, 1.0)
+    return np.degrees(np.arccos(tr))
