@@ -122,7 +122,26 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 18. tests/test_pod_scale.py's 1000-camera BA problem single-device through
    the kernels (BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)):
    rmse < 0.8 px, ATE < 0.01; LM iterations per second;
-19. service A (tpusfm_torch.tools.service_rung rung A): the port's HTTP
+19. global 200: run_sparse over the medium rung with engine_type="global",
+   intrinsics held (tools/engine_rung.py), counts reset just before: the
+   bars set from the reference's own CPU run on the same scene (ENGINE_REF:
+   views >= the reference's less 2% of V, ATE <= max(1.5x, +0.02) the
+   reference's, points >= 80% of the reference's), K1 bf16 only, K2 held,
+   K3 and K4 launched in its final BAs (_lm_kernels); rotation_averaging
+   and translation_averaging called twice on the run's own edge tables,
+   the same bits, each timed (CUDA events); K2-K4 at the run's last call
+   against their twins as in phase 8;
+20. stellar 200: the same scene with engine_type="stellar", self-
+   calibrating one group from FOCAL_START x the truth: its bars (and fx
+   within FX_TOL, as the reference's run meets it), K2 refine, K5 with
+   D = 6 and 7 and K4 with D = 7 launched; rotation_averaging,
+   edge_scale_solve and scaled_translation_solve repeat bit for bit and are
+   timed; K2 refine, K5 (D = 7) and K4 (D = 7) against their twins;
+21. calibration: tests/test_calibration.py's chessboards rendered on the
+   host (tools/calib_boards.py), corners found by OpenCV, calibrate_camera
+   on the card: rms < 0.5 px, fx and fy within 2%, cx and cy within 15 px,
+   and within 1e-3 of the same solve on the CPU;
+22. service A (tpusfm_torch.tools.service_rung rung A): the port's HTTP
    service on 127.0.0.1 at a free port with a fresh workspace; the 20-view
    480x640 orbit POSTed to /upload as PNG (multipart), focal prior at its
    focal, the dense rung's DenseConfig; GET /preprocessing, /sparse,
@@ -134,7 +153,7 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    OBJ/MTL/atlas artifacts present and non-empty, /files/colorized.ply
    downloaded, K1 launched bf16 only (counts reset just before); prints
    each stage's wall seconds;
-20. service B (rung B): the medium rung's 200 views as EXIF JPEG
+23. service B (rung B): the medium rung's 200 views as EXIF JPEG
    photographs (quality 95: Make/Model of the sensor database, the focal
    as FocalLength, a GPS fix at each true centre, 1 unit = 1 m) through
    /upload, /preprocessing and /sparse: >= 190/200 registered, ATE <= 0.10,
@@ -143,7 +162,7 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    and refine, K5 with D = 6 and 7, K3 and K4 launched in the run (counts
    reset just before); prints the decoders that ran (native or PIL), the
    stage and engine-phase seconds;
-21. CLI: ``python -m tpusfm_torch.cli reconstruct`` as a child process
+24. CLI: ``python -m tpusfm_torch.cli reconstruct`` as a child process
    over the first 6 frames of service A with --focal and no --device:
    exit 0, >= 5 registered in its report.json, which names a CUDA device,
    as does its stderr (the card is the default).
@@ -151,13 +170,15 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
 shape, a second K4 entry at path B's cameras, a second K1 entry at the
-200-view chunk, and K1-K4 entries at the pod rung's shapes: route, source,
+200-view chunk, K1-K4 entries at the pod rung's shapes, K2-K4 entries at
+the global run's final BA and K2 refine, K5 and K4 entries at the stellar
+run's: route, source,
 the TPU kernel it replaces, launches in its main-path run (the 20-view run
 for K1, the held 200-view run for the second K1 entry and K2-K4, the
 500-camera kernel-path solve of phase 10 for the second K3 and K2 entries,
 path A for K5, path B for K6, K7 and the second K4 entry, the gather run
 for K8 and K9, the composition of phase 9 for K2 unreduced, the pod run
-for the pod entries), max abs error
+for the pod entries, the global and stellar runs for theirs), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
 device time from torch.profiler (with the kernels of a call printed), the
 least time the card could take (bytes at 3.35 TB/s or operations at their
@@ -203,6 +224,26 @@ POD = {"topk2_match": "topk2_match (pod rung chunk)",
        "linearize_reduce_radial3_t": "linearize_reduce_radial3_t (pod rung final BA)",
        "schur_mv_t": "schur_mv_t (pod rung final BA)",
        "schur_bwd_t": "schur_bwd_t (pod rung final BA)"}
+# The global and stellar engines' entries: K2-K4 at the held global run's
+# final BA, K2 refine, K5 (D = 7) and K4 (one group, D = 7) at the
+# self-calibrating stellar run's; their launches those runs'.
+GLOBAL = {"linearize_reduce_radial3_t": "linearize_reduce_radial3_t (global 200 final BA)",
+          "schur_mv_t": "schur_mv_t (global 200 final BA)",
+          "schur_bwd_t": "schur_bwd_t (global 200 final BA)"}
+STELLAR = {"linearize_reduce_radial3_t": "linearize_reduce_radial3_t (stellar 200 final BA, "
+                                         "refine)",
+           "schur_fwd_t": "schur_fwd_t (stellar 200 final BA, D=7)",
+           "schur_bwd_t": "schur_bwd_t (stellar 200 final BA, one group, D=7)"}
+# The reference's own run_sparse over the medium rung on a CPU
+# (scripts/selfcal_rung.py --views 200 --engine global --held, and --engine
+# stellar --focal-start 1.0; PERF.md section 6), recorded before any card
+# run of these engines: registered views, ATE, points and the refined fx's
+# relative error.  The card runs are held to bars set from it
+# (_engine_bars); its global engine misses the medium rung's own bars.
+ENGINE_REF = {"global": {"registered": 200, "ate": 3.1109862795005183, "points": 58,
+                         "fx_err": None},
+              "stellar": {"registered": 200, "ate": 0.015944265696080647, "points": 1272,
+                          "fx_err": -0.004865765571594238}}
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory,
 # float32 outside the tensor cores, which every kernel but K1's bf16 one
 # computes in, and dense bf16 on the tensor cores.
@@ -490,6 +531,19 @@ def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
         raise AssertionError(f"{label}: non-finite geometry in the reconstructed scene")
 
 
+_RUNG200: list = []
+
+
+def _rung200():
+    """The medium rung's images, ground truth and config (rung_inputs(200)),
+    rendered once for every phase that runs it."""
+    if not _RUNG200:
+        from tpusfm_torch.tools.front_end_counts import rung_inputs
+
+        _RUNG200.append(rung_inputs(200))
+    return _RUNG200[0]
+
+
 def _reset_counts():
     from tpusfm_torch.ops import obs_table as ot
     from tpusfm_torch.ops import topk2_match as k1
@@ -702,9 +756,7 @@ def _run_rung(images, gt, cfg, label, captured, **kw):
 
 def phase_slice200(entries: dict) -> dict:
     """The medium rung with intrinsics held; returns its last K1-K4 calls."""
-    from tpusfm_torch.tools.front_end_counts import rung_inputs
-
-    images, gt, cfg = rung_inputs(200)
+    images, gt, cfg = _rung200()
     captured = {}
     _, counts, _ = _run_rung(images, gt, cfg, "200-view run, intrinsics held", captured)
     if any(counts[n] == 0 for n in ("topk2_match",) + BA_KERNELS):
@@ -720,9 +772,7 @@ def phase_selfcal200(entries: dict, focal_start: float) -> dict:
     focal `focal_start` times the truth.  Returns its last kernel calls."""
     import numpy as np
 
-    from tpusfm_torch.tools.front_end_counts import rung_inputs
-
-    images, gt, cfg = rung_inputs(200)
+    images, gt, cfg = _rung200()
     n_views = images.shape[0]
     intr = np.tile(np.asarray(gt["intr"], np.float32), (n_views, 1))
     intr[:, :2] *= focal_start
@@ -755,9 +805,7 @@ def phase_gathers200(entries: dict) -> dict:
     K7; the preconditioner's Hpp^-1 rows gathered by K8).  Returns its last
     kernel calls."""
     from tpusfm_torch.ba.bundle_adjust import BAConfig
-    from tpusfm_torch.tools.front_end_counts import rung_inputs
-
-    images, gt, cfg = rung_inputs(200)
+    images, gt, cfg = _rung200()
     ba = BAConfig(max_iters=8, fix_first_cam=False, fused_linearize=False, pallas_gathers=True,
                   precond="schur_diag")
     cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, ba=ba))
@@ -1458,6 +1506,188 @@ def phase_pod_ba(card: str) -> None:
         raise AssertionError(f"1000-camera BA: not the kernel path: {launches}")
 
 
+def _engine_bars(engine: str, n_views: int, s: dict, label: str) -> None:
+    """The card run against the reference's (ENGINE_REF): registered views
+    >= the reference's less 2% of V, ATE <= max(1.5 x, + 0.02) the
+    reference's, points >= 80% of the reference's, finite geometry, and
+    under self-calibration fx within FX_TOL where the reference met it,
+    else within the reference's error + 0.5%."""
+    ref = ENGINE_REF[engine]
+    bars = {"registered": ref["registered"] - 0.02 * n_views,
+            "ate": max(1.5 * ref["ate"], ref["ate"] + 0.02), "points": 0.8 * ref["points"]}
+    ok = (s["registered"] >= bars["registered"] and s["ate"] <= bars["ate"]
+          and s["points"] >= bars["points"] and s["finite"])
+    if ref["fx_err"] is not None:
+        bars["fx_err"] = FX_TOL if abs(ref["fx_err"]) <= FX_TOL else abs(ref["fx_err"]) + 0.005
+        ok = ok and abs(s["fx_err"]) <= bars["fx_err"]
+    print(f"  bars from the reference's CPU run {json.dumps(ref)}: {json.dumps(bars)}")
+    if not ok:
+        got = {k: s[k] for k in ("registered", "ate", "points", "fx_err", "finite")}
+        raise AssertionError(f"{label} quality: {json.dumps(got)} against {json.dumps(bars)}; "
+                             f"log {s['engine_log'][-3:]}")
+
+
+# The averaging functions of the global and stellar engines, by module.
+AVERAGING = (("global_sfm", "rotation_averaging"), ("global_sfm", "translation_averaging"),
+             ("stellar", "edge_scale_solve"), ("stellar", "scaled_translation_solve"))
+
+
+@contextlib.contextmanager
+def _averaging_calls(captured: dict):
+    """Keeps the arguments of the last call of each averaging function in
+    `captured` under its name; restores the functions on exit."""
+    from tpusfm_torch.sfm import global_sfm, stellar
+
+    mods = {"global_sfm": global_sfm, "stellar": stellar}
+    saved = {}
+    for m, name in AVERAGING:
+        fn = saved[m, name] = getattr(mods[m], name)
+
+        def rec(*a, _fn=fn, _name=name, **k):
+            captured[_name] = (a, k)
+            return _fn(*a, **k)
+
+        setattr(mods[m], name, rec)
+    try:
+        yield
+    finally:
+        for (m, name), fn in saved.items():
+            setattr(mods[m], name, fn)
+
+
+def _check_averaging(captured: dict, label: str, card: str) -> None:
+    """Each averaging function the run called, on the run's own edge
+    tables: the same bits on two calls; its median ms (CUDA events)."""
+    from tpusfm_torch.sfm import global_sfm, stellar
+
+    mods = {"global_sfm": global_sfm, "stellar": stellar}
+    for m, name in AVERAGING:
+        if name not in captured:
+            continue
+        a, k = captured[name]
+        fn = getattr(mods[m], name)
+        out = _repeat_equal(lambda: fn(*a, **k), f"{name} at {label}")
+        ms = _median_ms(lambda: fn(*a, **k), warmup=1, runs=5)
+        shapes = [tuple(t.shape) for t in a if hasattr(t, "shape")]
+        print(f"  {name} at {label} ({card}): inputs {shapes}, the same bits on two calls, "
+              f"{ms:.3f} ms (CUDA events, median of 5), output finite "
+              f"{bool(out[0].isfinite().all())}")
+
+
+def _run_engine(engine: str, self_calibrate: bool, label: str, captured: dict):
+    """One run_sparse of the medium rung with `engine` on the card, counts
+    reset just before it: K1 bf16 only, at least one kernel-path solve, the
+    bars from the reference's run, the averaging functions' repeatability.
+    Returns (counts, calls by variant)."""
+    import torch
+
+    from tpusfm_torch.pipeline.sparse import run_sparse
+    from tpusfm_torch.tools.engine_rung import engine_args, engine_summary
+
+    images, gt, cfg = _rung200()
+    n_views = images.shape[0]
+    cfg, intr, group = engine_args(gt, cfg, engine, self_calibrate, FOCAL_START)
+    averaging = {}
+    _reset_counts()
+    with _recording(captured) as (solves, calls), _averaging_calls(averaging):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene, report = run_sparse(images, intr, cfg, device="cuda", seed=0, cam_group=group)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = _counts()
+    _only_bf16_k1(counts, label)
+    s = engine_summary(scene, report, gt)
+    print(f"{label}: registered {s['registered']}/{n_views}, ATE {s['ate']:.5f}, points "
+          f"{s['points']}, observations {s['n_obs']}, fx {s['fx_err']:+.5f}, fy "
+          f"{s['fy_err']:+.5f}, wall {wall:.2f} s")
+    print(f"  times_s {json.dumps(s['times_s'])}")
+    print(f"  recon_phase_s {json.dumps(s['recon_phase_s'])}")
+    print(f"  BA solves {json.dumps(s['ba_solves'])}; _lm_kernels solves {len(solves)}")
+    print(f"  launches {json.dumps(counts)}; kernel calls by variant "
+          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+    _engine_bars(engine, n_views, s, label)
+    if not solves:
+        raise AssertionError(f"{label}: no kernel-path solve")
+    _check_averaging(averaging, label, torch.cuda.get_device_name(0))
+    return counts, calls
+
+
+def phase_global200(card: str, entries: dict) -> None:
+    """The global engine over the medium rung, intrinsics held: its bars,
+    K2 held, K3 and K4 launched, each held against its twins at the run's
+    last call (its final BA)."""
+    captured = {}
+    counts, calls = _run_engine("global", False, "global 200 (intrinsics held)", captured)
+    if not calls["linearize_reduce_radial3_t", "held"] or any(counts[n] == 0 for n in BA_KERNELS):
+        raise AssertionError(f"global 200: a kernel of the path did not launch: {counts}")
+    res = _check_ba_kernels("global 200 final BA", *(captured[n] for n in BA_KERNELS), card)
+    for name, r in res.items():
+        entries[GLOBAL[name]].update(r, launches=counts[name])
+
+
+def phase_stellar200(card: str, entries: dict) -> None:
+    """The stellar engine over the medium rung, self-calibrating one group
+    from FOCAL_START x the truth: its bars, K2 refine, K5 with D = 6 and 7
+    and K4 with D = 7 launched, each held against its twins at the run's
+    last call of that variant."""
+    captured = {}
+    counts, calls = _run_engine("stellar", True, f"stellar 200 (self-calibrating, focal "
+                                f"started x{FOCAL_START})", captured)
+    need = [("linearize_reduce_radial3_t", "refine"), ("schur_fwd_t", "D=6"),
+            ("schur_fwd_t", "D=7"), ("schur_bwd_t", "D=7")]
+    if any(calls[k] == 0 for k in need):
+        raise AssertionError(f"stellar 200: a kernel of the path did not launch: {counts}, "
+                             f"{dict(calls)}")
+    k2 = captured["linearize_reduce_radial3_t", "refine"]
+    a2 = k2[0]
+    print(f"Stellar 200 kernels at C={a2[0].shape[0]} P={a2[2].shape[0]} O={a2[5].shape[0]} on "
+          f"{card}")
+    for name, key, label, w in (
+            ("linearize_reduce_radial3_t", "refine", "stellar 200 final BA, refine", (2, 4)),
+            ("schur_fwd_t", "D=7", "stellar 200, D=7", ()),
+            ("schur_bwd_t", "D=7", "stellar 200, one group, D=7", ())):
+        entries[STELLAR[name]].update(_check_kernel(name, captured[name, key], label,
+                                                    w_outputs=w), launches=counts[name])
+
+
+def phase_calibration(card: str) -> None:
+    """The boards of tests/test_calibration.py rendered on the host, their
+    corners found by OpenCV, calibrate_camera on the card: that test's bars
+    (rms < 0.5 px, fx and fy within 2%, cx and cy within 15 px), and within
+    1e-3 relative (k1, k2 within 1e-3) and 1e-3 px rms of the same solve on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.tools.calib_boards import render_board_views
+    from tpusfm_torch.utils import calibration
+
+    images, K = render_board_views()
+    t0 = time.time()
+    corners = calibration.find_chessboard_corners(images, (9, 6))
+    detect_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    intr, rms, V = calibration.calibrate_camera(corners, (9, 6), device="cuda")
+    solve_s = time.time() - t0
+    cpu, cpu_rms, _ = calibration.calibrate_camera(corners, (9, 6), device="cpu")
+    err = [abs(intr[0] / K[0, 0] - 1), abs(intr[1] / K[1, 1] - 1), abs(intr[2] - K[0, 2]),
+           abs(intr[3] - K[1, 2])]
+    print(f"calibration ({card}): {V} of {len(images)} boards found in {detect_s:.2f} s (host "
+          f"OpenCV), solve {solve_s:.2f} s on the card (homographies + 30 Gauss-Newton steps): "
+          f"intr {np.round(intr, 4).tolist()}, rms {rms:.4f} px; fx, fy relative error "
+          f"{err[0]:.5f}, {err[1]:.5f}; cx, cy {err[2]:.3f}, {err[3]:.3f} px; the CPU solve "
+          f"{np.round(cpu, 4).tolist()}, rms {cpu_rms:.4f}")
+    if V < 4 or not rms < 0.5 or not err[0] < 0.02 or not err[1] < 0.02 or not err[2] < 15 \
+            or not err[3] < 15:
+        raise AssertionError(f"calibration on the card: {V} boards, rms {rms}, errors {err}")
+    if not (np.allclose(intr[:4], cpu[:4], rtol=1e-3, atol=0) and
+            np.allclose(intr[4:], cpu[4:], rtol=0, atol=1e-3) and abs(rms - cpu_rms) < 1e-3):
+        raise AssertionError(f"calibration: the card's {intr} (rms {rms}) against the CPU's "
+                             f"{cpu} (rms {cpu_rms})")
+
+
 BROWN_LENS = (-0.10, 0.015, 0.0, 0.008, -0.006)  # [k1 k2 k3 t1 t2], test_camera_models.py:153
 
 
@@ -1731,7 +1961,13 @@ def main() -> int:
             K4_PATH_B: ("ba_schur.cu", 1891),
             POD["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
             POD["schur_mv_t"]: ("ba_schur.cu", 2023),
-            POD["schur_bwd_t"]: ("ba_schur.cu", 1891)}.items():
+            POD["schur_bwd_t"]: ("ba_schur.cu", 1891),
+            GLOBAL["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
+            GLOBAL["schur_mv_t"]: ("ba_schur.cu", 2023),
+            GLOBAL["schur_bwd_t"]: ("ba_schur.cu", 1891),
+            STELLAR["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
+            STELLAR["schur_fwd_t"]: ("ba_schur.cu", 1796),
+            STELLAR["schur_bwd_t"]: ("ba_schur.cu", 1891)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1755,6 +1991,11 @@ def main() -> int:
     phase_pod_kernels(card, cap_pod, local, entries)
     del cap_pod, local
     phase_pod_ba(card)
+    t_eng = time.time()
+    phase_global200(card, entries)
+    phase_stellar200(card, entries)
+    phase_calibration(card)
+    print(f"engine and calibration phases wall {time.time() - t_eng:.1f} s")
     t_svc = time.time()
     files = phase_service_a(card)
     phase_service_b(card)

@@ -1064,3 +1064,95 @@ def test_service_on_card_runs_the_sparse_stage(dev, tmp_path):
     assert q["registered"] == 5 and q["ate"] < 0.05, q
     assert topk2_match.LAUNCHES["quantized"] > before["quantized"]
     assert topk2_match.LAUNCHES["f32"] == before["f32"]
+
+
+def _feature_tracks(s):
+    """(kp, track_ids) of a synthetic observation table, each view's
+    features its observations (tests/test_incremental.py's helper)."""
+    V = len(s["R"])
+    per_view = [np.nonzero(s["obs_cam"] == v)[0] for v in range(V)]
+    N = max(len(p) for p in per_view)
+    kp = np.zeros((V, N, 2), np.float32)
+    track_ids = np.full((V, N), -1, np.int32)
+    for v, rows in enumerate(per_view):
+        kp[v, : len(rows)] = s["obs_uv"][rows]
+        track_ids[v, : len(rows)] = s["obs_pt"][rows]
+    return kp, track_ids
+
+
+@pytest.mark.parametrize("engine", ["global", "stellar"])
+def test_engines_on_card_meet_the_reference_test_bars(dev, engine):
+    """The global and stellar engines on the card over the reference
+    tests' 12-view scene (tests/test_global_sfm.py:60-72,
+    test_stellar.py:61-73): 12/12, ATE < 0.02, > 150 points."""
+    from tpusfm_torch.sfm import global_sfm, stellar
+    from tpusfm_torch.utils.synth_scene import orbit_scene
+
+    s = orbit_scene(n_cams=12, n_points=300, noise_px=0.4, seed=9, arc_deg=140.0)
+    kp, track_ids = _feature_tracks(s)
+    intr = np.tile(s["intr"], (12, 1))
+    cls = global_sfm.GlobalEngine if engine == "global" else stellar.StellarEngine
+    eng = cls(kp, intr, track_ids, int(track_ids.max()) + 1, device=dev)
+    scene = eng.run(torch.Generator(device=dev).manual_seed(0))
+    assert scene.cam_mask.device.type == dev.type
+    reg = scene.cam_mask.cpu().numpy()
+    assert reg.sum() == 12
+    ate = metrics.ate_rmse(scene.camera_centers().cpu().numpy()[reg], s["centers"][reg])
+    assert ate < 0.02, f"{engine} ATE {ate:.4f}"
+    assert int(scene.point_mask.sum()) > 150
+
+
+def test_averaging_on_card_repeats_bit_for_bit_and_matches_cpu(dev):
+    """The four averaging solves on the card: the same bits on two calls,
+    and within 1e-4 (of the largest output) of the same solve on the CPU."""
+    from tpusfm_torch.core import lie
+    from tpusfm_torch.sfm import global_sfm, stellar
+
+    rng = np.random.default_rng(0)
+    V = 40
+    R_gt = lie.so3_exp(torch.as_tensor(rng.normal(scale=0.6, size=(V, 3)), dtype=torch.float32))
+    C_gt = torch.as_tensor(rng.normal(size=(V, 3)) * 3, dtype=torch.float32)
+    edges = np.array([(i, j) for i in range(V) for j in range(i + 1, min(V, i + 7))], np.int64)
+    ei, ej = torch.as_tensor(edges[:, 0]), torch.as_tensor(edges[:, 1])
+    R_rel = R_gt[ej] @ R_gt[ei].transpose(1, 2)
+    d = C_gt[ej] - C_gt[ei]
+    w = torch.as_tensor(rng.uniform(0.2, 1, len(edges)), dtype=torch.float32)
+    la = torch.as_tensor(rng.integers(0, len(edges), 600))
+    lb = torch.as_tensor(rng.integers(0, len(edges), 600))
+    rhs = torch.as_tensor(rng.normal(size=600) * 0.1, dtype=torch.float32)
+    R_init = torch.eye(3).expand(V, 3, 3).contiguous()
+    calls = {
+        "rotation": lambda t: global_sfm.rotation_averaging(
+            t(ei), t(ej), t(R_rel), t(w), t(R_init), V, 40),
+        "translation": lambda t: global_sfm.translation_averaging(
+            t(ei), t(ej), t(d / d.norm(dim=1, keepdim=True)), t(w), 1, V, 100),
+        "edge_scale": lambda t: stellar.edge_scale_solve(t(la), t(lb), t(rhs), t(w[:1].expand(600)),
+                                                         len(edges), cg_iters=len(edges)),
+        "scaled_translation": lambda t: stellar.scaled_translation_solve(
+            t(ei), t(ej), t(d), t(w), V, cg_iters=3 * V),
+    }
+    for name, call in calls.items():
+        a, b = call(lambda x: x.to(dev)), call(lambda x: x.to(dev))
+        assert torch.equal(a, b), name
+        cpu = call(lambda x: x)
+        tol = 1e-4 * float(cpu.abs().max())
+        assert float((a.cpu() - cpu).abs().max()) <= tol, name
+
+
+def test_calibration_on_card_meets_the_reference_test_bars(dev):
+    """calibrate_camera on the card over tests/test_calibration.py's boards
+    (rendered by the port's copy of its renderer): that test's bars, and
+    within 1e-3 relative (1e-3 px rms) of the same solve on the CPU."""
+    from tpusfm_torch.tools.calib_boards import render_board_views
+    from tpusfm_torch.utils import calibration
+
+    images, K = render_board_views()
+    corners = calibration.find_chessboard_corners(images, (9, 6))
+    intr, rms, V = calibration.calibrate_camera(corners, (9, 6), device=dev)
+    cpu, cpu_rms, _ = calibration.calibrate_camera(corners, (9, 6), device="cpu")
+    assert V >= 4 and rms < 0.5
+    assert abs(intr[0] - K[0, 0]) / K[0, 0] < 0.02 and abs(intr[1] - K[1, 1]) / K[1, 1] < 0.02
+    assert abs(intr[2] - K[0, 2]) < 15 and abs(intr[3] - K[1, 2]) < 15
+    np.testing.assert_allclose(intr[:4], cpu[:4], rtol=1e-3)
+    np.testing.assert_allclose(intr[4:], cpu[4:], atol=1e-3)
+    assert abs(rms - cpu_rms) < 1e-3

@@ -104,13 +104,13 @@ def test_config_defaults_match_reference():
         convert.config_from_jax(WithExtra(extra_stage=1))
 
 
-@pytest.mark.parametrize("what", ["devices", "engine_type"])
+@pytest.mark.parametrize("what", ["devices"])
 def test_unported_options_raise(what):
-    """Loop closure and preemptive matching are ported: their parity tests
-    are in test_torch_loop_closure.py."""
+    """Loop closure and preemptive matching are ported (their parity tests
+    are in test_torch_loop_closure.py), and so are the global and stellar
+    engines (test_torch_global_sfm.py, test_torch_stellar.py)."""
     cfg = {
         "devices": tconfig.config_from_overrides(devices=2),
-        "engine_type": tconfig.config_from_overrides(engine_type="global"),
     }[what]
     images = np.zeros((2, 32, 32), np.float32)
     with pytest.raises(NotImplementedError):

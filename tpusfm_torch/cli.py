@@ -7,8 +7,7 @@
 Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the CPU; with no CUDA device the card default is
 an error.  Not ported yet, each raising ``NotImplementedError``: ``bench``
-(the port's benchmark is ROADMAP queue 1 item 1), ``--devices`` above 1 and
-``--engine global`` / ``stellar``.
+(the port's benchmark is ROADMAP queue 1 item 1) and ``--devices`` above 1.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ def _add_cfg_args(p: argparse.ArgumentParser):
                    help="data-parallel device count (only 1 is ported)")
     p.add_argument("--engine", default="incremental",
                    choices=["incremental", "global", "stellar"],
-                   help="reconstruction engine (only incremental is ported)")
+                   help="reconstruction engine (ESfMEngine parity)")
     p.add_argument("--no-self-calibrate", action="store_true",
                    help="disable RADIAL3 self-calibration (shared-group "
                         "BA intrinsic refinement)")
@@ -58,8 +57,6 @@ def _make_cfg(args):
 def _require_ported(cfg) -> None:
     if cfg.devices is not None and cfg.devices > 1:
         raise NotImplementedError("--devices > 1 (data-parallel mesh) is not ported yet")
-    if cfg.engine_type != "incremental":
-        raise NotImplementedError(f"--engine {cfg.engine_type} is not ported yet")
 
 
 def cmd_reconstruct(args):

@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port: configuration, features
 and scenes.
 
-SfM has no learned weights; its state is configuration, features and the
-scene.  These helpers read the reference's objects field by field
+SfM has no learned weights; its state is configuration (the pipeline's and
+the global engines'), features and the scene.  These helpers read the reference's objects field by field
 (``dataclasses.fields``) and take numpy arrays, so this module imports
 nothing from jax or the reference package.  Scenes go through
 ``sfm.scene.scene_from_numpy`` / ``scene_to_numpy`` (re-exported here).
@@ -17,6 +17,7 @@ import torch
 
 from .features.sift import Features
 from .pipeline.config import PipelineConfig
+from .sfm.global_sfm import GlobalConfig
 from .sfm.scene import scene_from_numpy, scene_to_numpy  # noqa: F401 (re-exported)
 
 
@@ -46,6 +47,12 @@ def config_from_jax(cfg) -> PipelineConfig:
     configs (``dense`` and its ``pm``) included.  A reference field the
     port lacks raises only when it differs from the reference's default."""
     return _convert_dataclass(cfg, PipelineConfig)
+
+
+def global_config_from_jax(cfg) -> GlobalConfig:
+    """A reference ``GlobalConfig`` (the global and stellar engines') as the
+    port's, field by field."""
+    return _convert_dataclass(cfg, GlobalConfig)
 
 
 def features_from_numpy(kp, desc, score, mask, device) -> Features:

@@ -50,7 +50,7 @@ class PipelineConfig:
     filter: GeometricFilterConfig = dataclasses.field(default_factory=GeometricFilterConfig)
     engine: IncrementalConfig = dataclasses.field(default_factory=IncrementalConfig)
     dense: DenseConfig = dataclasses.field(default_factory=DenseConfig)
-    engine_type: Literal["incremental", "global", "stellar"] = "incremental"  # only incremental is ported
+    engine_type: Literal["incremental", "global", "stellar"] = "incremental"
     focal_prior_px: float | None = None
     feature_batch: int = 8             # views per SIFT batch
     self_calibrate: bool = True        # refine one RADIAL3 block per camera group

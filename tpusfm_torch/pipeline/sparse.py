@@ -11,16 +11,17 @@ Port of ``tpusfm/pipeline/sparse.py``, stage for stage:
                     full-distance-matrix matcher; optionally after the
                     preemptive prefilter
   filter_pairs      robust F/E/H RANSAC per pair, batched over pairs
-  reconstruct       tracks + the incremental engine with bundle adjustment
+  reconstruct       tracks + the engine of cfg.engine_type (incremental,
+                    global or stellar) with bundle adjustment
   colorize          mean track color
 
 ``run_sparse`` takes its device explicitly and picks none itself.  It turns
 TF32 off for float32 matrix products and convolutions (the SIFT blur would
 otherwise run in TF32 on the card and move extrema).  Chunk sizes follow
 the reference's rule so that both packages batch alike.  Not ported yet,
-each raising ``NotImplementedError``: engine types other than
-"incremental" and more than one device.  The dense and mesh stages that
-follow are ``dense.depth.dense_reconstruct`` and ``dense.meshing``.
+raising ``NotImplementedError``: more than one device.  The dense and mesh
+stages that follow are ``dense.depth.dense_reconstruct`` and
+``dense.meshing``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..core import epipolar, homography
 from ..features import sift
 from ..matching import match as match_mod
 from ..matching import pairs as pairs_mod
-from ..sfm import incremental
+from ..sfm import global_sfm, incremental, stellar
 from ..sfm import ransac as ransac_mod
 from ..sfm import tracks as tracks_mod
 from .config import PipelineConfig
@@ -273,22 +274,27 @@ def filter_pairs(feats: sift.Features, pair_list, match_idx, match_valid, cfg: P
 def reconstruct(feats: sift.Features, intr, pair_list, match_idx, match_valid,
                 cfg: PipelineConfig, generator: torch.Generator | None = None,
                 progress=_noop_progress, cam_group=None, init_scene=None):
-    """Tracks + the incremental engine on the features' device.  cam_group:
-    optional (V,) intrinsic-group ids (one self-calibrating BA block each);
-    init_scene: optional prior Scene over the same track table."""
-    if cfg.engine_type != "incremental":
-        raise NotImplementedError(f"engine_type={cfg.engine_type!r} is not ported yet")
+    """Tracks + the engine of cfg.engine_type on the features' device.
+    cam_group: optional (V,) intrinsic-group ids (one self-calibrating BA
+    block each); init_scene: optional prior Scene over the same track table,
+    which seeds the incremental engine (the others start from scratch)."""
     V, N = feats.mask.shape
     track_ids, n_tracks = tracks_mod.build_tracks(V, N, pair_list, match_idx, match_valid)
     eng_cfg = cfg.engine
     if cfg.self_calibrate and cam_group is not None:
         eng_cfg = dataclasses.replace(eng_cfg, ba=dataclasses.replace(
             eng_cfg.ba, refine_intrinsics=True, refine_params="all"))
-    engine = incremental.IncrementalEngine(
-        feats.kp.cpu().numpy(), np.asarray(intr), track_ids, n_tracks, eng_cfg,
-        progress=progress, cam_group=cam_group, device=feats.kp.device)
-    if init_scene is not None:
-        engine.seed_from_scene(init_scene)
+    kp = feats.kp.cpu().numpy()
+    if cfg.engine_type in ("global", "stellar"):
+        cls = global_sfm.GlobalEngine if cfg.engine_type == "global" else stellar.StellarEngine
+        engine = cls(kp, np.asarray(intr), track_ids, n_tracks, progress=progress,
+                     cam_group=cam_group, inc_cfg=eng_cfg, device=feats.kp.device)
+    else:
+        engine = incremental.IncrementalEngine(
+            kp, np.asarray(intr), track_ids, n_tracks, eng_cfg,
+            progress=progress, cam_group=cam_group, device=feats.kp.device)
+        if init_scene is not None:
+            engine.seed_from_scene(init_scene)
     scene = engine.run(generator)
     return scene, engine
 
