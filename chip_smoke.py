@@ -165,14 +165,37 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 24. CLI: ``python -m tpusfm_torch.cli reconstruct`` as a child process
    over the first 6 frames of service A with --focal and no --device:
    exit 0, >= 5 registered in its report.json, which names a CUDA device,
-   as does its stderr (the card is the default).
+   as does its stderr (the card is the default);
+25-29. the parallel/ slice (tpusfm_torch.tools.parallel_rung): one world
+   of 2 ranks spawned on the one card, joined by gloo (NCCL refuses two
+   ranks on one device; gloo moves each collective through host memory),
+   every rank resetting the launch counts just before each phase and
+   reading them just after.  25: run_sparse(devices=2) over the held
+   200-view rung: >= 190/200, ATE <= 0.10, > 1000 points, match tables
+   bit-equal to phase 5's, registered >= phase 5's - 2 and points within
+   10% of it, sharded full BAs ran, K1, K2, K4 and K5 (D = 6) launched on
+   each rank; rank 0's last K5 call (held, D = 6, a new mode) is held
+   against its twin as phase 8 holds K2-K4;  26: the 500-camera BA sharded
+   on the kernel path at 10 forced LM iterations, its cost within 1% of one
+   device's solve at 10, LM it/s printed beside it;  27: the one-group
+   self-calibrating BA over phase 5's scene, sharded: K2 refine, K5 and K4
+   at D = 6 and 7, fx within 1% of the truth and the cost within 1% of one
+   device's;  28: dense_reconstruct(mesh=) over the dense rung's 6 views:
+   PM error <= 0.006, >= 300,000 fused points, depth maps equal to phase
+   4's on >= 99% of pixels;  29: ring_match_all_pairs at 64 views x 1024
+   u8-grid descriptors, every ordered pair of each rank's rows bit-equal to
+   K1 run locally;
+30. one NCCL world of 1 rank in this process around phase 26's solve (the
+   NCCL path starts and all-reduces on the card), its cost within 1% of
+   one device's.
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
 shape, a second K4 entry at path B's cameras, a second K1 entry at the
 200-view chunk, K1-K4 entries at the pod rung's shapes, K2-K4 entries at
 the global run's final BA and K2 refine, K5 and K4 entries at the stellar
-run's: route, source,
+run's, and K5's held mode (D = 6) at the sharded 200-view run's rank 0:
+route, source,
 the TPU kernel it replaces, launches in its main-path run (the 20-view run
 for K1, the held 200-view run for the second K1 entry and K2-K4, the
 500-camera kernel-path solve of phase 10 for the second K3 and K2 entries,
@@ -230,6 +253,9 @@ POD = {"topk2_match": "topk2_match (pod rung chunk)",
 GLOBAL = {"linearize_reduce_radial3_t": "linearize_reduce_radial3_t (global 200 final BA)",
           "schur_mv_t": "schur_mv_t (global 200 final BA)",
           "schur_bwd_t": "schur_bwd_t (global 200 final BA)"}
+# K5 held (D = 6), the mode sharding adds: rank 0's last call in the
+# sharded 200-view run, its launches that rank's in that run.
+K5_SHARDED = "schur_fwd_t (sharded 200 held, D=6, rank 0 of 2)"
 STELLAR = {"linearize_reduce_radial3_t": "linearize_reduce_radial3_t (stellar 200 final BA, "
                                          "refine)",
            "schur_fwd_t": "schur_fwd_t (stellar 200 final BA, D=7)",
@@ -544,23 +570,12 @@ def _rung200():
     return _RUNG200[0]
 
 
-def _reset_counts():
-    from tpusfm_torch.ops import obs_table as ot
-    from tpusfm_torch.ops import topk2_match as k1
+def _kc():
+    """tpusfm_torch.tools.kernel_calls: the launch counts and the recorder of
+    kernel-wrapper calls, the same in the parallel phases' ranks."""
+    from tpusfm_torch.tools import kernel_calls
 
-    for launches in (k1.LAUNCHES, ot.LAUNCHES):
-        for name in launches:
-            launches[name] = 0
-
-
-def _counts() -> dict:
-    """Launches since the last reset: K1's bf16 variant as "topk2_match",
-    its f32 variant as "topk2_match f32", and K2-K9."""
-    from tpusfm_torch.ops import obs_table as ot
-    from tpusfm_torch.ops import topk2_match as k1
-
-    return {"topk2_match": k1.LAUNCHES["quantized"], "topk2_match f32": k1.LAUNCHES["f32"],
-            **ot.LAUNCHES}
+    return kernel_calls
 
 
 def _only_bf16_k1(counts: dict, label: str) -> None:
@@ -579,13 +594,13 @@ def phase_slice20(entry: dict):
 
     n_views = 20
     images, gt, cfg = headline_inputs(480, 640, n_views)
-    _reset_counts()
+    _kc().reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     scene, report = run_sparse(images, gt["intr"], cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, "20-view run")
     launches = counts["topk2_match"]
     n_pairs = n_views * (n_views - 1) // 2
@@ -663,64 +678,7 @@ def phase_dense(card: str, scene, images, gt) -> None:
     if not prof["launches"]:
         print("  the profiler kept no kernel record of the dense run")
     print(f"  dense phase wall {time.time() - t0:.1f} s")
-
-
-def _variant(name: str, a: tuple, k: dict) -> str:
-    """The launch variant a path is held to: K2's mode, K4/K5's block
-    height D, K6/K7's value count k."""
-    if name == "match_topk2":
-        return "quantized" if k.get("quantized", len(a) > 3 and a[3]) else "f32"
-    if name == "linearize_reduce_radial3_t":
-        return "refine" if k.get("refine", len(a) > 8 and a[8]) else "held"
-    if name in ("schur_bwd_t", "schur_fwd_t"):
-        return f"D={a[0].shape[0] // 3}"
-    if name in NEW_KERNELS:
-        return f"k={a[0].shape[0]}"
-    if name in GATHERS:
-        return f"D={a[0].shape[1]}"
-    if name == UNREDUCED:
-        return "refine" if k.get("refine", len(a) > 8 and a[8]) else "held"
-    return ""
-
-
-@contextlib.contextmanager
-def _recording(capture: dict | None):
-    """Yields (solves, calls): this run's _lm_kernels solves as (C, P, O)
-    and a Counter of kernel-wrapper calls by (name, variant).  When
-    `capture` is given, also keeps the arguments of the last call of each
-    wrapper (K1-K9) there, under its name and under (name, variant).
-    Restores everything on exit."""
-    from collections import Counter
-
-    from tpusfm_torch.ba import bundle_adjust as tba
-    from tpusfm_torch.ops import obs_table as ot
-    from tpusfm_torch.ops import topk2_match as k1
-
-    solves, calls = [], Counter()
-    saved = {(tba, "_lm_kernels"): tba._lm_kernels}
-
-    def lm_kernels(*a, **k):
-        solves.append((a[0].shape[0], a[2].shape[0], a[8].shape[0]))
-        return saved[(tba, "_lm_kernels")](*a, **k)
-
-    tba._lm_kernels = lm_kernels
-    for mod, name in [(k1, "match_topk2")] + [(ot, n) for n in BA_KERNELS + NEW_KERNELS
-                                               + GATHERS + (UNREDUCED,)]:
-        saved[(mod, name)] = getattr(mod, name)
-
-        def rec(*a, _key=(mod, name), **k):
-            key = (_key[1], _variant(_key[1], a, k))
-            calls[key] += 1
-            if capture is not None:
-                capture[key[0]] = capture[key] = (a, k)
-            return saved[_key](*a, **k)
-
-        setattr(mod, name, rec)
-    try:
-        yield solves, calls
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
+    return out
 
 
 def _run_rung(images, gt, cfg, label, captured, **kw):
@@ -733,38 +691,79 @@ def _run_rung(images, gt, cfg, label, captured, **kw):
 
     from tpusfm_torch.pipeline.sparse import run_sparse
 
-    _reset_counts()
-    with _recording(captured) as (solves, calls):
+    _kc().reset_counts()
+    with _kc().recording(captured) as (solves, calls):
         torch.cuda.synchronize()
         t0 = time.time()
         scene, report = run_sparse(images, kw.pop("intr", gt["intr"]), cfg, device="cuda",
                                    seed=0, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, label)
     _check_quality(scene, report, gt, images.shape[0], 190, 0.10, label)
     print(f"  tracks {report['n_tracks']}, observations {report['n_obs']}, "
           f"launches {json.dumps(counts)}, wall {wall:.2f} s")
     print(f"  _lm_kernels solves {len(solves)}, shapes (C, P, O): {dict(Counter(solves))}")
     print(f"  kernel calls by variant: "
-          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+          f"{json.dumps(_kc().named(calls))}")
     if not solves:
         raise AssertionError(f"{label}: no kernel-path solve")
     return scene, counts, calls
 
 
-def phase_slice200(entries: dict) -> dict:
-    """The medium rung with intrinsics held; returns its last K1-K4 calls."""
+def phase_slice200(entries: dict) -> tuple[dict, dict]:
+    """The medium rung with intrinsics held; returns its last K1-K4 calls
+    and (scene, registered views, points, match tables) for phase 25."""
     images, gt, cfg = _rung200()
     captured = {}
-    _, counts, _ = _run_rung(images, gt, cfg, "200-view run, intrinsics held", captured)
+    scene, counts, _ = _run_rung(images, gt, cfg, "200-view run, intrinsics held", captured)
     if any(counts[n] == 0 for n in ("topk2_match",) + BA_KERNELS):
         raise AssertionError(f"200-view run: a kernel of the path did not launch: {counts}")
     for name in BA_KERNELS:
         entries[name]["launches"] = counts[name]
     entries[K1_200]["launches"] = counts["topk2_match"]
-    return captured
+    return captured, {"scene": scene, "registered": int(scene.cam_mask.sum()),
+                      "points": int(scene.point_mask.sum()),
+                      "matches": captured.pop("matches")}
+
+
+def phase_parallel(card: str, ref200: dict, scene20, images20, gt20, dense_out: dict,
+                   entries: dict) -> None:
+    """Phases 25-30 (see the docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    from tpusfm_torch.tools import parallel_rung as pr
+
+    t0 = time.time()
+    views = dense_out["views"]
+    ref = {"registered": ref200["registered"], "points": ref200["points"],
+           "matches": ref200["matches"], "dense_depths": dense_out["maps"]["depths"][views]}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        spec, ba500 = pr.prepare(tmp, _rung200(), ref200["scene"], scene20, images20, views,
+                                 gt20, "cuda:0")
+        print(f"phases 25-29 ({card}): spawning 2 ranks on cuda:0 joined by gloo "
+              f"(inputs written in {time.time() - t0:.1f} s)")
+        t1 = time.time()
+        results = pr.run_world(spec, 2, tmp)
+        t_world = time.time() - t1
+        print(f"phase 30 ({card}): one NCCL rank in this process around phase 26's solve")
+        nccl = pr.nccl_solve(ba500, tmp, "cuda:0")
+    for line in pr.check(results, ref, nccl, DENSE_MAX_ERR, DENSE_MIN_POINTS):
+        print(f"  {line}")
+    for r in results:
+        print(f"  rank {r['rank']} phase seconds: "
+              f"{json.dumps({n: round(r[n]['phase_wall_s'], 2) for n in pr.PHASES})}")
+    print(f"  world of 2: {t_world:.1f} s, its results checked, parallel phases wall "
+          f"{time.time() - t0:.1f} s")
+    rank0 = results[0]["sparse"]
+    entries[K5_SHARDED]["launches"] = rank0["launches"]["schur_fwd_t"]
+    a, k = pr.to_device(rank0["k5_call"], "cuda:0")
+    print(f"K5 held at the sharded 200-view run's rank 0 (O={a[0].shape[1]} rows of its shard, "
+          f"P={a[4]}) on {card}")
+    entries[K5_SHARDED].update(_check_kernel("schur_fwd_t", (a, k),
+                                             "sharded 200 held, D=6, rank 0"))
 
 
 def phase_selfcal200(entries: dict, focal_start: float) -> dict:
@@ -1068,7 +1067,7 @@ def _timed_solve(bench: dict, cfg, label: str, card: str, **kw):
     from tpusfm_torch.ops import obs_table as ot
 
     tba.bundle_adjust(cfg=dataclasses.replace(cfg, max_iters=1), **bench, **kw)
-    _reset_counts()
+    _kc().reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     out = tba.bundle_adjust(cfg=cfg, **bench, **kw)
@@ -1189,11 +1188,11 @@ def phase_unreduced(card: str, captured: dict, cap_a: dict, bench: dict, entries
 
     held_a, refine_a = captured["linearize_reduce_radial3_t"], \
         cap_a["linearize_reduce_radial3_t", "refine"]
-    _reset_counts()
+    _kc().reset_counts()
     for a, kw in (held_a, refine_a):
         _unreduced_then_reduce(a, kw)
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _kc().counts()
     print(f"K2 unreduced, then K6 and K7, at the 200-view shapes (held, path A refine): launches "
           f"{json.dumps({n: counts[n] for n in (UNREDUCED, 'segsum_table_t', 'segsum_sorted_t')})}")
     if counts[UNREDUCED] != 2 or not counts["segsum_table_t"] or not counts["segsum_sorted_t"]:
@@ -1282,10 +1281,10 @@ def phase_preemptive() -> None:
     pre = config_from_overrides(**PRE_BASE, **{"matching.preemptive": True})
     feats = sparse.detect_features(images, full, device="cuda")
     pl = sparse.generate_pairs(8, full)
-    _reset_counts()
+    _kc().reset_counts()
     keep = sparse.preemptive_filter_pairs(feats, pl, pre)
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, "preemptive prefilter")
     K = pre.matching.preemptive_features
     ia, ib = (torch.as_tensor(pl[:, i], device="cuda").long() for i in (0, 1))
@@ -1325,14 +1324,14 @@ def phase_two_view() -> None:
     images, gt = render_orbit_images(n_views=2, img_h=240, img_w=320, focal=0.9 * 320,
                                      arc_deg=10.0, seed=3)
     intr = tcam.make_intrinsics(0.9 * 320, cx=160.0, cy=120.0, device="cuda")
-    _reset_counts()
+    _kc().reset_counts()
     t0 = time.time()
     out = two_view_reconstruct(images, intr, sift_cfg=SiftConfig(n_octaves=3, max_per_octave=512,
                                                                  max_features=768),
                                ransac_iters=256, device="cuda", seed=0)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, "two-view")
     R_rel = gt["R"][1] @ gt["R"][0].T
     cos = (np.trace(out["R"].cpu().numpy() @ R_rel.T) - 1) / 2
@@ -1394,14 +1393,14 @@ def phase_pod(entries: dict) -> tuple[dict, dict]:
     images, gt, cfg = pod_inputs(1000)
     render_s = time.time() - t0
     captured, local = {}, {}
-    _reset_counts()
-    with _recording(captured) as (solves, calls), _local_k2_calls(local):
+    _kc().reset_counts()
+    with _kc().recording(captured) as (solves, calls), _local_k2_calls(local):
         torch.cuda.synchronize()
         t0 = time.time()
         scene, report = run_sparse(images, gt["intr"], cfg, device="cuda", seed=0)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, "pod rung")
     s = pod_summary(scene, report, gt, cfg.matching.contiguous_window)
     local_cams = s["local_ba_cams"]
@@ -1417,7 +1416,7 @@ def phase_pod(entries: dict) -> tuple[dict, dict]:
           f"({dense} dense-Schur, {sum(local_cams.values()) - dense} through the kernels)")
     print(f"  launches {json.dumps(counts)}")
     print(f"  _lm_kernels solves {len(solves)}, kernel calls by variant: "
-          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+          f"{json.dumps(_kc().named(calls))}")
     if (s["registered"] < 950 or not s["ate"] <= 0.30 or s["points"] <= 1000
             or not s["finite"]):
         raise AssertionError(f"pod rung quality: {s}; log {report['engine_log'][-5:]}")
@@ -1494,7 +1493,7 @@ def phase_pod_ba(card: str) -> None:
     O = len(prob["obs_cam"])
     bench = {k: torch.as_tensor(v, device="cuda") for k, v in prob.items()}
     cfg = tba.BAConfig(max_iters=8, cg_iters=25, obs_chunk=32768)
-    with _recording(None) as (solves, _):
+    with _kc().recording(None) as (solves, _):
         out, launches = _timed_solve(bench, cfg, "kernels, 1000-camera pod problem", card)
     rmse = float(np.sqrt(2 * float(out[4]["final_cost"]) / O))
     ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(out[1]), out[2]).cpu().numpy(), centers)
@@ -1588,14 +1587,14 @@ def _run_engine(engine: str, self_calibrate: bool, label: str, captured: dict):
     n_views = images.shape[0]
     cfg, intr, group = engine_args(gt, cfg, engine, self_calibrate, FOCAL_START)
     averaging = {}
-    _reset_counts()
-    with _recording(captured) as (solves, calls), _averaging_calls(averaging):
+    _kc().reset_counts()
+    with _kc().recording(captured) as (solves, calls), _averaging_calls(averaging):
         torch.cuda.synchronize()
         t0 = time.time()
         scene, report = run_sparse(images, intr, cfg, device="cuda", seed=0, cam_group=group)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    counts = _counts()
+    counts = _kc().counts()
     _only_bf16_k1(counts, label)
     s = engine_summary(scene, report, gt)
     print(f"{label}: registered {s['registered']}/{n_views}, ATE {s['ate']:.5f}, points "
@@ -1605,7 +1604,7 @@ def _run_engine(engine: str, self_calibrate: bool, label: str, captured: dict):
     print(f"  recon_phase_s {json.dumps(s['recon_phase_s'])}")
     print(f"  BA solves {json.dumps(s['ba_solves'])}; _lm_kernels solves {len(solves)}")
     print(f"  launches {json.dumps(counts)}; kernel calls by variant "
-          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}")
+          f"{json.dumps(_kc().named(calls))}")
     _engine_bars(engine, n_views, s, label)
     if not solves:
         raise AssertionError(f"{label}: no kernel-path solve")
@@ -1714,7 +1713,7 @@ def phase_brown(card: str, entries: dict) -> dict:
                     ("plain, Brown-T2 self-calibrating", dataclasses.replace(cfg, impl="xla")),
                     ("kernels (unfused, pallas_gathers), Brown-T2 self-calibrating",
                      dataclasses.replace(cfg, pallas_gathers=True))):
-        with _recording(captured if name.startswith("kernels") else None) as (_, calls):
+        with _kc().recording(captured if name.startswith("kernels") else None) as (_, calls):
             out, launches = _timed_solve(bench, c, name, card, **group)
         outs[name] = out
         g = out[0][0].cpu().numpy()
@@ -1839,10 +1838,10 @@ def phase_service_a(card: str) -> list:
     files, gt, cfg = sr.rung_a_inputs()
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
         ws = Path(tmp)
-        _reset_counts()
+        _kc().reset_counts()
         out = sr.drive(files, cfg, ("preprocessing", "sparse", "dense", "mesh"), ws,
                        device="cuda", deadline_s=900)
-        counts = _counts()
+        counts = _kc().counts()
         _only_bf16_k1(counts, "service A")
         _service_common(out, "service A", card)
         q = sr.scene_quality(ws, gt)
@@ -1877,11 +1876,11 @@ def phase_service_b(card: str) -> None:
           f"{time.time() - t0:.1f} s to render and encode")
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
         ws = Path(tmp)
-        _reset_counts()
-        with _recording(None) as (solves, calls):
+        _kc().reset_counts()
+        with _kc().recording(None) as (solves, calls):
             out = sr.drive(files, cfg, ("preprocessing", "sparse"), ws, device="cuda",
                            deadline_s=900)
-        counts = _counts()
+        counts = _kc().counts()
         _only_bf16_k1(counts, "service B")
         _service_common(out, "service B", card)
         q = sr.scene_quality(ws, gt)
@@ -1893,7 +1892,7 @@ def phase_service_b(card: str) -> None:
     print(f"  recon_phase_s {json.dumps(report['recon_phase_s'])}, sparse elapsed_s "
           f"{report['elapsed_s']}, device {report['device']}")
     print(f"  launches {json.dumps(counts)}; kernel calls by variant "
-          f"{json.dumps({f'{n} {v}'.strip(): c for (n, v), c in sorted(calls.items())})}; "
+          f"{json.dumps(_kc().named(calls))}; "
           f"_lm_kernels solves {len(solves)}")
     if (q["registered"] < 190 or not q["ate"] <= 0.10 or q["points"] <= 1000
             or not q["finite"] or not abs(fx_rel) <= FX_TOL):
@@ -1967,14 +1966,16 @@ def main() -> int:
             GLOBAL["schur_bwd_t"]: ("ba_schur.cu", 1891),
             STELLAR["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
             STELLAR["schur_fwd_t"]: ("ba_schur.cu", 1796),
-            STELLAR["schur_bwd_t"]: ("ba_schur.cu", 1891)}.items():
+            STELLAR["schur_bwd_t"]: ("ba_schur.cu", 1891),
+            K5_SHARDED: ("ba_schur.cu", 1796)}.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
                          "bound_by": None, "library_ms": None, "device_ms": None,
                          "library_device_ms": None}
-    phase_dense(card, *phase_slice20(entries["topk2_match"]))
-    captured = phase_slice200(entries)
+    scene20, images20, gt20 = phase_slice20(entries["topk2_match"])
+    dense_out = phase_dense(card, scene20, images20, gt20)
+    captured, ref200 = phase_slice200(entries)
     cap_a = phase_selfcal200(entries, FOCAL_START)
     cap_g = phase_gathers200(entries)
     bench = phase_ba_kernels(card, captured, entries)
@@ -2001,6 +2002,7 @@ def main() -> int:
     phase_service_b(card)
     phase_cli(card, files)
     print(f"service and CLI phases wall {time.time() - t_svc:.1f} s")
+    phase_parallel(card, ref200, scene20, images20, gt20, dense_out, entries)
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

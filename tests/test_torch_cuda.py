@@ -1156,3 +1156,46 @@ def test_calibration_on_card_meets_the_reference_test_bars(dev):
     np.testing.assert_allclose(intr[:4], cpu[:4], rtol=1e-3)
     np.testing.assert_allclose(intr[4:], cpu[4:], atol=1e-3)
     assert abs(rms - cpu_rms) < 1e-3
+
+
+def _sharded_ba_rank(rank, prob):
+    """One rank of test_sharded_ba_two_gloo_ranks_on_one_card."""
+    from tpusfm_torch.parallel import dist_ba
+    from tpusfm_torch.parallel import mesh as tmesh
+
+    dev = torch.device("cuda", 0)
+    m = tmesh.make_mesh(device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in prob.items()}
+    obs = dist_ba.shard_obs_table(prob["obs_cam"], prob["obs_pt"], prob["obs_uv"],
+                                  prob["obs_mask"], m.size, device=dev)
+    rest = {k: v for k, v in t.items() if not k.startswith("obs_")}
+    cfg = tba.BAConfig(max_iters=8, converge_rtol=0.0)  # 70 cameras: the kernel path
+    before = dict(ot.LAUNCHES)
+    out = dist_ba.bundle_adjust_sharded(m, **rest, obs_cam=obs[0], obs_pt=obs[1], obs_uv=obs[2],
+                                        obs_mask=obs[3], cfg=cfg)
+    launches = {k: ot.LAUNCHES[k] - before[k] for k in before}
+    single = tba.bundle_adjust(**t, cfg=cfg)
+    return {"cost": float(out[4]["final_cost"]), "single_cost": float(single[4]["final_cost"]),
+            "rot": out[1].cpu().numpy(), "t": out[2].cpu().numpy(),
+            "single_rot": single[1].cpu().numpy(), "single_t": single[2].cpu().numpy(),
+            "launches": launches}
+
+
+def test_sharded_ba_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks on cuda:0 solve a 70-camera BA with the observation
+    table split between them (K2, then K5 and K4 in point space; K3 is one
+    device's) and match the single-device kernel solve: final cost within
+    1% relative, poses within 5e-3; both ranks get the same bits."""
+    from tpusfm_torch.parallel import mesh as tmesh
+
+    prob = point_sorted_ba_problem(70, 3000, seed=3, vis_prob=0.2)
+    res = tmesh.run_ranks(_sharded_ba_rank, 2, backend="gloo",
+                          init_method=f"file://{tmp_path}/init", args=(prob,))
+    for r in res:
+        assert abs(r["cost"] - r["single_cost"]) <= 0.01 * r["single_cost"]
+        np.testing.assert_allclose(r["rot"], r["single_rot"], atol=5e-3)
+        np.testing.assert_allclose(r["t"], r["single_t"], atol=5e-3)
+        n = r["launches"]
+        assert n["linearize_reduce_radial3_t"] and n["schur_fwd_t"] and n["schur_bwd_t"], n
+        assert n["schur_mv_t"] == 0, n
+    np.testing.assert_array_equal(res[0]["t"], res[1]["t"])

@@ -221,11 +221,20 @@ def test_consistency_filter_matches_reference(room):
 
 
 def test_sharded_paths_raise(room):
-    for fn in (tdist.plane_sweep_sharded, tdist.patchmatch_sharded):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdepth.dense_reconstruct(room["tsc"], room["images"], None, mesh=object(), device="cpu")
+    """The sharded paths run in a process group (test_torch_parallel.py,
+    test_torch_mesh_pipeline.py); a batch that does not split over the mesh,
+    or a mesh outside any group, raises instead of running on one device."""
+    from tpusfm_torch.parallel import mesh as tmesh
+
+    three = tmesh.Mesh(group=None, axis="shard", size=3, rank=0, device=torch.device("cpu"),
+                       backend="gloo")
+    sidx = torch.zeros((4, 4), dtype=torch.int32)
+    for fn, n_rest in ((tdist.plane_sweep_sharded, 3), (tdist.patchmatch_sharded, 7)):
+        with pytest.raises(ValueError, match="must divide mesh axis 3"):
+            fn(three, None, None, sidx, *([None] * n_rest))
+    one = dataclasses.replace(three, size=1)
+    with pytest.raises(ValueError, match="process group"):
+        tdepth.dense_reconstruct(room["tsc"], room["images"], None, mesh=one, device="cpu")
 
 
 def test_dense_config_carries_from_reference():

@@ -347,15 +347,18 @@ def test_config_json_equal(overrides):
 @pytest.mark.parametrize("field", [{"axis_name": "obs"}, {"pallas_interpret": True}])
 def test_config_json_only_fields_raise_when_set(field):
     """BAConfig keeps the reference's axis_name and pallas_interpret so that
-    both packages write the same config.json; the port has neither a
-    sharded table nor an interpret mode, so any other value raises."""
+    both packages write the same config.json.  The port has no interpret
+    mode, so pallas_interpret=True raises; axis_name names a mesh that
+    parallel.mesh.make_mesh registered (test_torch_parallel.py), and an
+    axis no mesh was made for raises."""
     from tpusfm_torch.ba.bundle_adjust import BAConfig, bundle_adjust
 
     z = torch.zeros
     args = (z(2, 7), z(2, 3), z(2, 3), torch.ones(2, dtype=torch.bool), z(4, 3),
             torch.ones(4, dtype=torch.bool), torch.zeros(8, dtype=torch.long),
             torch.zeros(8, dtype=torch.long), z(8, 2), torch.ones(8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match=next(iter(field))):
+    error = RuntimeError if "axis_name" in field else NotImplementedError
+    with pytest.raises(error, match="axis 'obs'" if "axis_name" in field else "pallas_interpret"):
         bundle_adjust(*args, cfg=BAConfig(**field))
 
 
@@ -386,7 +389,9 @@ def test_cli_make_cfg_matches_reference(argv, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
         tcli.main(["bench"])
-    with pytest.raises(NotImplementedError):
+    # --devices 2 outside torchrun's group of 2 ranks (test_torch_mesh_pipeline.py
+    # runs it inside one).
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tcli.main(["reconstruct", str(tmp_path), "--workspace", str(tmp_path / "ws"),
                     "--device", "cpu", "--devices", "2"])
     if not torch.cuda.is_available():  # the card default never falls back to the CPU

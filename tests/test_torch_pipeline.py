@@ -108,12 +108,14 @@ def test_config_defaults_match_reference():
 def test_unported_options_raise(what):
     """Loop closure and preemptive matching are ported (their parity tests
     are in test_torch_loop_closure.py), and so are the global and stellar
-    engines (test_torch_global_sfm.py, test_torch_stellar.py)."""
+    engines (test_torch_global_sfm.py, test_torch_stellar.py) and devices > 1
+    (test_torch_mesh_pipeline.py), which outside a process group of that
+    many ranks raises instead of running on one device."""
     cfg = {
         "devices": tconfig.config_from_overrides(devices=2),
     }[what]
     images = np.zeros((2, 32, 32), np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
         tsparse.run_sparse(images, np.array([30, 30, 16, 16, 0, 0, 0], np.float32), cfg,
                            device="cpu")
 

@@ -28,6 +28,14 @@ chunks of ``obs_chunk`` observations, the table padded to a multiple with
 weight-0 rows as in the reference; the kernel path ignores the field.  The
 LM and CG loops are Python loops that read one convergence flag from the
 device per iteration.
+
+``BAConfig.axis_name`` names a mesh axis (``parallel/mesh.py``): the
+observation table passed in is then this rank's shard, and every
+reduction over it is summed over the ranks where the reference puts its
+``psum`` (``_maybe_psum``).  The kernel path then keeps the point side in
+point space (shard-local rank spaces differ), and the CG matvec is K5,
+Hpp^-1 after a sum over the ranks, then K4.  The stopping rules read only
+summed values, so every rank takes the same branches.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from torch.func import jacfwd, vmap
 from ..core import camera as cam
 from ..core import lie
 from ..ops import obs_table as ot
+from ..parallel import mesh as mesh_mod
 
 POSE_DIM = 6
 INTR_DIM = 7
@@ -64,8 +73,8 @@ class BAConfig:
     obs_chunk: int = 65536         # plain path: observations per assembly chunk (the table
                                    # is padded to a multiple with weight-0 rows); the kernel
                                    # path ignores it
-    axis_name: str | None = None   # mesh axis of a sharded observation table; only None
-                                   # (one device) is ported, anything else raises
+    axis_name: str | None = None   # mesh axis of a sharded observation table
+                                   # (parallel.mesh.make_mesh registers it); None = one device
     impl: str = "auto"             # "auto" | "xla" (the plain path) | "pallas" (kernels K2-K9)
     pallas_interpret: bool = False  # kept so the two packages write the same config.json;
                                     # the CPU runs the kernels' twins, True raises
@@ -151,6 +160,12 @@ def robust_cost(r: torch.Tensor, mask: torch.Tensor, delta: float) -> torch.Tens
 # ---------------------------------------------------------------------------
 # Small linear-algebra helpers
 # ---------------------------------------------------------------------------
+
+def _maybe_psum(xs: list, axis_name: str | None) -> list:
+    """The tensors summed over the ranks of `axis_name` (one all_reduce
+    per dtype), or as they are on one device."""
+    return mesh_mod.psum_many(xs, axis_name) if axis_name else list(xs)
+
 
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """Sum rows of vals (O, ...) by id (O,) into (n, ...)."""
@@ -287,6 +302,7 @@ def _build_system(pose, gintr, points, refine_m, obs_cam, obs_grp, obs_pt, obs_u
             acc["Hgg"].index_add_(0, ogrp, torch.einsum("oki,okj->oij", jg, jg))
             acc["Hcg"].index_add_(0, ocam, torch.einsum("oki,okj->oij", jc, jg))
             acc["gg"].index_add_(0, ogrp, torch.einsum("oki,ok->oi", jg, rr))
+    acc = dict(zip(acc, _maybe_psum(list(acc.values()), cfg.axis_name)))
     acc["Wc"] = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3)
     if refine:
         acc["Wg"] = torch.einsum("oki,okj->oij", Jg, Jp).reshape(-1, E * 3)
@@ -298,21 +314,30 @@ def _build_system(pose, gintr, points, refine_m, obs_cam, obs_grp, obs_pt, obs_u
 # ---------------------------------------------------------------------------
 
 def _dense_schur_solve(Hcc_d, Hgg_d, Hcg, Hpp_inv, Wc3, Wg3, obs_cam, obs_grp, obs_pt, rhs,
-                       upd_c, upd_g, cam_group, C, G, refine: bool):
+                       upd_c, upd_g, cam_group, C, G, refine: bool, axis_name=None):
     """Assemble the reduced [pose | intrinsic-group] system densely from
     per-point coupling tables (P, C, 6, 3) [+ (P, G, E, 3)] and solve it by
-    Cholesky.  A failed factorization gives the zero step (LM rejects it)."""
+    Cholesky.  A failed factorization gives the zero step (LM rejects it).
+    Sharded, the coupling tables are summed over the ranks before the
+    contraction: S is quadratic in W, so per-shard Schur complements would
+    drop every cross-shard coupling term."""
     D = POSE_DIM
     E = Hgg_d.shape[-1] if refine else INTR_DIM
     P = Hpp_inv.shape[0]
     dev, dt = Hcc_d.device, Hcc_d.dtype
-    Wcp = segment_sum(Wc3.reshape(-1, D * 3), obs_pt * C + obs_cam, P * C).reshape(P, C, D, 3)
+    Wcp = segment_sum(Wc3.reshape(-1, D * 3), obs_pt * C + obs_cam, P * C)
+    if refine:
+        Wgp = segment_sum(Wg3.reshape(-1, E * 3), obs_pt * G + obs_grp, P * G)
+        Wcp, Wgp = _maybe_psum([Wcp, Wgp], axis_name)
+        Wgp = Wgp.reshape(P, G, E, 3)
+    else:
+        Wcp, = _maybe_psum([Wcp], axis_name)
+    Wcp = Wcp.reshape(P, C, D, 3)
     Acp = torch.einsum("pcdk,pkl->pcdl", Wcp, Hpp_inv)
     idxC = torch.arange(C, device=dev)
     Scc = -torch.einsum("pcdl,pejl->cdej", Acp, Wcp)
     Scc[idxC, :, idxC, :] += Hcc_d
     if refine:
-        Wgp = segment_sum(Wg3.reshape(-1, E * 3), obs_pt * G + obs_grp, P * G).reshape(P, G, E, 3)
         Scg = -torch.einsum("pcdl,pgel->cdge", Acp, Wgp)
         Scg[idxC, :, cam_group, :] += Hcg
         Agp = torch.einsum("pgek,pkl->pgel", Wgp, Hpp_inv)
@@ -346,7 +371,7 @@ def _dense_eligible(C, G, P, cfg: BAConfig) -> bool:
     return dim <= cfg.dense_schur_max_dim and 2 * tables * 4 <= cfg.dense_schur_max_bytes
 
 
-def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C, chunk: int):
+def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C, chunk: int, axis_name=None):
     """Exact pose-diagonal blocks of S (block-Jacobi preconditioner), over
     chunks of `chunk` observations like the assembly."""
     D = Hcc_d.shape[-1]
@@ -355,7 +380,7 @@ def _schur_diag_pose(Hcc_d, Hpp_inv, Wc, obs_cam, obs_pt, C, chunk: int):
         W3 = Wc[s: s + chunk].reshape(-1, D, 3)
         acc.index_add_(0, obs_cam[s: s + chunk],
                        torch.einsum("oij,ojk,olk->oil", W3, Hpp_inv[obs_pt[s: s + chunk]], W3))
-    return Hcc_d - acc
+    return Hcc_d - _maybe_psum([acc], axis_name)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -411,17 +436,19 @@ def camera_table(ps: torch.Tensor) -> torch.Tensor:
 def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam,
                 obs_grp, obs_pt, obs_uv, obs_w, C, G, cfg: BAConfig, max_iters: int,
                 prior_pos=None, prior_w=None):
-    """Counterpart of the reference's ``_lm_pallas`` in its single-device,
-    rank-space mode: the table is point-sorted and rank-compacted once per
-    solve (or taken as sorted under ``assume_sorted``), the whole point side
-    of the state lives in rank space, and every pass over the table is a
-    kernel call.  Linearization is K2 (fused, RADIAL3 with at most 2048
-    cameras and groups, unless ``fused_linearize=False``), else
+    """Counterpart of the reference's ``_lm_pallas``: the table is
+    point-sorted and rank-compacted once per solve (or taken as sorted
+    under ``assume_sorted``), and every pass over the table is a kernel
+    call.  On one device the whole point side of the state lives in rank
+    space; sharded (``cfg.axis_name``), it stays in point space, and each
+    rank-indexed reduction is scattered to its points and summed over the
+    ranks (reference :655-665).  Linearization is K2 (fused, RADIAL3 with at
+    most 2048 cameras and groups, unless ``fused_linearize=False``), else
     per-observation jacfwd Jacobians, on rows gathered by K8 and K9 under
     ``pallas_gathers``, reduced through K6 (cameras, groups) and K7 (point
-    ranks); the right-hand side is K4; a CG matvec is K3, or with refined
-    intrinsics K5 on Wc and Wg, then K4 on both.  Returns (ps, gi, pts,
-    lambda, initial cost, final cost, iterations)."""
+    ranks); the right-hand side is K4; a CG matvec is K3 on one device with
+    intrinsics held, else K5 (on Wc and Wg), Hpp^-1, then K4 on both.
+    Returns (ps, gi, pts, lambda, initial cost, final cost, iterations)."""
     if cfg.precond not in ("hcc", "schur_diag"):
         raise ValueError(f"precond must be 'hcc' or 'schur_diag', got {cfg.precond!r}")
     dev = pose0.device
@@ -471,6 +498,18 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     # card would add in another order each call.
     cam_to_grp = (torch.arange(G, device=dev)[:, None] == cam_group[None, :]).to(torch.float32) \
         if refine else None
+    ax = cfg.axis_name
+    # Shard-local rank spaces differ, so a sharded solve keeps the point side
+    # in (replicated) point space (reference :655-665).
+    rank_space = ax is None
+    scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
+
+    def to_rank(tab_p):
+        return torch.where(rank_valid[:, None], tab_p[safe_r2p], zero)
+
+    def from_rank(tab_r):
+        # Each valid rank has a point of its own; the rest land on a dropped row.
+        return tab_r.new_zeros((P + 1, tab_r.shape[1])).index_copy_(0, scatter_ids, tab_r)[:P]
 
     def gather(table, idx):
         # K8 for tables of at most 4096 rows under pallas_gathers (reference :671-677).
@@ -479,20 +518,30 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         return ot._gather_rows(table, idx)
 
     def gather_pts(pts):
-        # The rank-space point table by rank: K9 under pallas_gathers (:679-686).
-        return ot.gather_sorted(pts, ranks) if cfg.pallas_gathers else ot._gather_rows(pts, ranks)
+        # The point table by rank: K9 under pallas_gathers (:679-686).
+        if not rank_space and not cfg.pallas_gathers:
+            return ot._gather_rows(pts, obs_pt)
+        pts_rank = pts if rank_space else to_rank(pts)
+        return (ot.gather_sorted(pts_rank, ranks) if cfg.pallas_gathers
+                else ot._gather_rows(pts_rank, ranks))
 
     def linearize_fused(ps, gi, pts):
         outs = ot.linearize_reduce_radial3_t(
-            camera_table(ps), gi, pts, obs_cam, obs_grp, ranks, obs_uvT, obs_w, refine=refine,
-            refine_mask=cfg.refine_mask(), huber_delta=cfg.huber_delta, w_dtype=cfg.w_dtype,
-            layout=layout, grp_layout=grp_layout, seg_ordered_w=True)
+            camera_table(ps), gi, pts if rank_space else to_rank(pts), obs_cam, obs_grp, ranks,
+            obs_uvT, obs_w, refine=refine, refine_mask=cfg.refine_mask(),
+            huber_delta=cfg.huber_delta, w_dtype=cfg.w_dtype, layout=layout,
+            grp_layout=grp_layout, seg_ordered_w=True)
         camred, ptred, Wc = outs[:3]
+        grpred = outs[3] if refine else None
+        if not rank_space:  # rank rows to their points, then the sums over the ranks
+            camred, ptred, *grpred = _maybe_psum([camred, from_rank(ptred)]
+                                                 + ([grpred] if refine else []), ax)
+            grpred = grpred[0] if refine else None
         sys = {"Hcc": camred[:, full66].reshape(C, D, D), "gc": camred[:, 21:27], "Wc": Wc,
                "Wc_seg": outs[-1], "Hpp": ptred[:, full33].reshape(P, 3, 3),
                "gp": ptred[:, 6:9]}
         if refine:
-            grpred, sys["Wg"] = outs[3:5]
+            sys["Wg"] = outs[4]
             sys["Hcg"] = camred[:, 27:27 + D * E].reshape(C, D, E)
             sys["Hgg"] = grpred[:, full77].reshape(G, E, E)
             sys["gg"] = grpred[:, 28:35]
@@ -517,6 +566,15 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         ptvals = torch.cat([torch.einsum("oki,okj->oij", Jp, Jp).reshape(-1, 9),
                             torch.einsum("oki,ok->oi", Jp, r)], 1)
         ptred = ot.segsum_sorted_t(ptvals.T.contiguous(), ranks, P, layout=layout)
+        if refine:
+            grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
+                                 torch.einsum("oki,ok->oi", Jg, r)], 1)
+            grpred = ot.segsum_table_t(grpvals.T, obs_grp, G, layout=grp_layout)
+        if not rank_space:
+            cost, camred, ptred, *grpred = _maybe_psum(
+                [cost, camred, from_rank(ptred)] + ([grpred] if refine else []), ax)
+            if refine:
+                grpred = grpred[0]
         wc_rows = torch.einsum("oki,okj->oij", Jc, Jp).reshape(-1, D * 3)
         sys = {"Hcc": camred[:, :D * D].reshape(C, D, D), "gc": camred[:, D * D:D * D + D],
                "Hpp": ptred[:, :9].reshape(P, 3, 3), "gp": ptred[:, 9:],
@@ -525,9 +583,6 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
                "Wc_seg": ot.gather_table(wc_rows, layout.seg_perm).to(wdt).T}
         if refine:
             sys["Hcg"] = camred[:, D * D + D:].reshape(C, D, E)
-            grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
-                                 torch.einsum("oki,ok->oi", Jg, r)], 1)
-            grpred = ot.segsum_table_t(grpvals.T, obs_grp, G, layout=grp_layout)
             sys["Hgg"] = grpred[:, :E * E].reshape(G, E, E)
             sys["gg"] = grpred[:, E * E:]
             sys["Wg"] = torch.einsum("oki,okj->oij", Jg, Jp).reshape(-1, E * 3).to(wdt).T \
@@ -545,24 +600,30 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
 
     def solve(sys, lam):
         Hcc_d = _damp_blocks(sys["Hcc"], lam)
-        Hinv = torch.where(rank_valid[:, None, None], _inv3(_damp_blocks(sys["Hpp"], lam)), zero)
+        Hpp_inv = _inv3(_damp_blocks(sys["Hpp"], lam))
         gp, Wc = sys["gp"], sys["Wc"]
-        z = torch.einsum("pij,pj->pi", Hinv, gp)
+        if rank_space:
+            Hinv = torch.where(rank_valid[:, None, None], Hpp_inv, zero)
+            z = torch.einsum("pij,pj->pi", Hinv, gp)
+        else:  # point-space state, the kernels' rank tables gathered from it
+            z = to_rank(torch.einsum("pij,pj->pi", Hpp_inv, gp))
         Wc_seg = sys["Wc_seg"]
-        rhs = {"c": (-sys["gc"] + ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout,
-                                                 w_seg=Wc_seg)) * upd_c}
+        wz = [ot.schur_bwd_t(Wc, obs_cam, ranks, z, C, layout=layout, w_seg=Wc_seg)]
         if refine:
             Hcg, Hgg_d, Wg = sys["Hcg"], _damp_blocks(sys["Hgg"], lam), sys["Wg"]
-            rhs["g"] = (-sys["gg"] + ot.schur_bwd_t(Wg, obs_grp, ranks, z, G, layout=grp_layout)
-                        ) * upd_g
+            wz.append(ot.schur_bwd_t(Wg, obs_grp, ranks, z, G, layout=grp_layout))
             M_inv_g = _invD(Hgg_d)
+        wz = _maybe_psum(wz, ax)
+        rhs = {"c": (-sys["gc"] + wz[0]) * upd_c}
+        if refine:
+            rhs["g"] = (-sys["gg"] + wz[1]) * upd_g
         if cfg.precond == "schur_diag":  # exact S diagonal blocks, reduced by K6
             W3 = Wc.to(torch.float32).T.reshape(-1, D, 3)
-            Hinv_o = gather(Hinv.reshape(P, 9), ranks).reshape(-1, 3, 3)  # (:874-879)
+            Hinv_o = (gather(Hinv.reshape(P, 9), ranks) if rank_space  # (:874-879)
+                      else gather(Hpp_inv.reshape(P, 9), obs_pt)).reshape(-1, 3, 3)
             contrib = torch.einsum("oij,ojk,olk->oil", W3, Hinv_o, W3)
-            M_inv_c = _invD(Hcc_d - ot.segsum_table_t(
-                contrib.reshape(-1, D * D).T, obs_cam, C, layout=layout)
-                .reshape(C, D, D))
+            red = ot.segsum_table_t(contrib.reshape(-1, D * D).T, obs_cam, C, layout=layout)
+            M_inv_c = _invD(Hcc_d - _maybe_psum([red], ax)[0].reshape(C, D, D))
         else:  # damped Hcc blocks: one obs-table pass fewer
             M_inv_c = _invD(Hcc_d)
 
@@ -574,38 +635,54 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
 
         def mv(v):
             vc = v["c"] * upd_c
-            if not refine:
+            if rank_space and not refine:
                 sv, y = ot.schur_mv_t(Wc, obs_cam, ranks, vc, Hinv, P, hcc_d=Hcc_d,
                                       layout=layout)
                 return {"c": sv * upd_c}, y
-            # The self-calibrating matvec (:904-926): K5 on both W tables,
-            # Hpp^-1, K4 on both; the C- and G-row terms stay plain torch.
-            vg = v["g"] * upd_g
-            y = (ot.schur_fwd_t(Wc, obs_cam, ranks, vc, P, layout=layout)
-                 + ot.schur_fwd_t(Wg, obs_grp, ranks, vg, P, layout=layout))
-            zz = torch.einsum("pij,pj->pi", Hinv, y)
-            bc = ot.schur_bwd_t(Wc, obs_cam, ranks, zz, C, layout=layout, w_seg=Wc_seg)
-            bg = ot.schur_bwd_t(Wg, obs_grp, ranks, zz, G, layout=grp_layout)
-            Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc) + torch.einsum("cde,ce->cd", Hcg,
-                                                                       vg[cam_group])
+            # K3's fused round trip is one device's (:895-902).  Otherwise
+            # (:903-927): K5 on the W tables, Hpp^-1 (sharded: in point space
+            # after the sum over the ranks), K4 on each table; the C- and
+            # G-row terms stay plain torch.
+            y = ot.schur_fwd_t(Wc, obs_cam, ranks, vc, P, layout=layout)
+            if refine:
+                vg = v["g"] * upd_g
+                y = y + ot.schur_fwd_t(Wg, obs_grp, ranks, vg, P, layout=layout)
+            if rank_space:
+                zz = torch.einsum("pij,pj->pi", Hinv, y)
+            else:
+                zz = to_rank(torch.einsum("pij,pj->pi", Hpp_inv,
+                                          _maybe_psum([from_rank(y)], ax)[0]))
+            b = [ot.schur_bwd_t(Wc, obs_cam, ranks, zz, C, layout=layout, w_seg=Wc_seg)]
+            if refine:
+                b.append(ot.schur_bwd_t(Wg, obs_grp, ranks, zz, G, layout=grp_layout))
+            b = _maybe_psum(b, ax)
+            Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc)
+            if not refine:
+                return {"c": (Hvc - b[0]) * upd_c}, y
+            Hvc = Hvc + torch.einsum("cde,ce->cd", Hcg, vg[cam_group])
             Hvg = torch.einsum("gef,gf->ge", Hgg_d, vg) + cam_to_grp @ torch.einsum(
                 "cde,cd->ce", Hcg, vc)
-            return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}, y
+            return {"c": (Hvc - b[0]) * upd_c, "g": (Hvg - b[1]) * upd_g}, y
 
         d, Wtd = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol,
                       aux0=torch.zeros((P, 3), dtype=torch.float32, device=dev))
-        dp = -torch.einsum("pij,pj->pi", Hinv, gp + Wtd) * pt_upd_state
+        if rank_space:
+            dp = -torch.einsum("pij,pj->pi", Hinv, gp + Wtd) * pt_upd_state
+        else:  # W^T d summed over the ranks in point space (:938-942)
+            Wtd = _maybe_psum([from_rank(Wtd)], ax)[0]
+            dp = -torch.einsum("pij,pj->pi", Hpp_inv, gp + Wtd) * pt_upd_state
         return d["c"] * upd_c, d["g"] * upd_g if refine else None, dp
 
-    # Points enter rank space once and leave it once.
-    pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
-    pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
+    if rank_space:  # points enter rank space once and leave it once
+        pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
+        pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
+    else:
+        pts_state0, pt_upd_state = points, pt_upd
     ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr0,
                                                        pts_state0, refine, cfg, max_iters)
-    # Rows of valid ranks go back to their points; the rest keep their input.
-    scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
-    out = torch.cat([points, points[:1]], 0).index_copy_(0, scatter_ids, pts)[:P]
-    return ps, gi, out, lam, init_cost, cost, n_it
+    if rank_space:  # rows of valid ranks go back to their points; the rest keep their input
+        pts = torch.cat([points, points[:1]], 0).index_copy_(0, scatter_ids, pts)[:P]
+    return ps, gi, pts, lam, init_cost, cost, n_it
 
 
 # ---------------------------------------------------------------------------
@@ -634,10 +711,9 @@ def bundle_adjust(
     """Run LM bundle adjustment.  Returns (intr, cam_rot, cam_t, points,
     info) with info = {'initial_cost', 'final_cost', 'lambda', 'iterations',
     'n_obs'}; the returned intr is per camera, gathered from the group
-    table."""
-    if cfg.axis_name is not None:
-        raise NotImplementedError("BAConfig.axis_name (a sharded observation table) is not "
-                                  "ported yet")
+    table.  With ``cfg.axis_name`` the observation arrays are this rank's
+    shard (``parallel.dist_ba.bundle_adjust_sharded``) and everything else
+    is replicated; every rank returns the same solution."""
     if cfg.pallas_interpret:
         raise NotImplementedError("BAConfig.pallas_interpret: the port has no interpret mode; "
                                   "a tensor on the CPU runs the kernels' plain twins")
@@ -657,6 +733,11 @@ def bundle_adjust(
     gintr = torch.zeros((G, E), dtype=intr.dtype, device=dev)
     gintr[cam_group] = intr
     refine_m = torch.as_tensor(cfg.refine_mask(E), dtype=intr.dtype, device=dev)
+    ax = cfg.axis_name
+    mi = cfg.max_iters if max_iters is None else int(max_iters)
+    if ax:
+        mesh_mod.check_same(mesh_mod.mesh_for(ax), "bundle_adjust", shard_obs=obs_cam.shape[0],
+                            cameras=C, points=P, groups=G, max_iters=mi)
 
     kernels = cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok)
     if not kernels:
@@ -673,7 +754,7 @@ def bundle_adjust(
         upd_c = upd_c.clone()
         upd_c[0] = 0.0
     pt_upd = point_mask.to(torch.float32)[:, None]
-    grp_w = segment_sum(obs_w, obs_grp, G)
+    grp_w, = _maybe_psum([segment_sum(obs_w, obs_grp, G)], ax)
     upd_g = (grp_w > 0).to(torch.float32)[:, None] * refine_m[None, :]
 
     prior_w = None
@@ -704,17 +785,22 @@ def bundle_adjust(
 
         # Reduced rhs: -g + W Hpp^-1 gp.
         z_o = torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"])[obs_pt]
-        rhs_c = (-sys["gc"] + segment_sum(torch.einsum("oij,oj->oi", Wc3, z_o), obs_cam, C)) * upd_c
+        wz = [segment_sum(torch.einsum("oij,oj->oi", Wc3, z_o), obs_cam, C)]
         if refine:
-            rhs_g = (-sys["gg"] + segment_sum(torch.einsum("oij,oj->oi", Wg3, z_o), obs_grp, G)) * upd_g
+            wz.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, z_o), obs_grp, G))
+        wz = _maybe_psum(wz, ax)
+        rhs_c = (-sys["gc"] + wz[0]) * upd_c
+        if refine:
+            rhs_g = (-sys["gg"] + wz[1]) * upd_g
 
         if dense_ok:
             rhs_flat = torch.cat([rhs_c.reshape(-1), rhs_g.reshape(-1)]) if refine else rhs_c.reshape(-1)
             dc, dg = _dense_schur_solve(Hcc_d, Hgg_d, Hcg, Hpp_inv, Wc3, Wg3, obs_cam, obs_grp,
-                                        obs_pt, rhs_flat, upd_c, upd_g, cam_group, C, G, refine)
+                                        obs_pt, rhs_flat, upd_c, upd_g, cam_group, C, G, refine,
+                                        ax)
         else:
             M_inv_c = _invD(_schur_diag_pose(Hcc_d, Hpp_inv, sys["Wc"], obs_cam, obs_pt, C,
-                                             max(cfg.obs_chunk, 1)))
+                                             max(cfg.obs_chunk, 1), ax))
             M_inv_g = _invD(Hgg_d) if refine else None
 
             def apply_M(v):
@@ -729,12 +815,17 @@ def bundle_adjust(
                 if refine:
                     vg = v["g"] * upd_g
                     u = u + torch.einsum("oij,oi->oj", Wg3, vg[obs_grp])
-                zz_o = torch.einsum("pij,pj->pi", Hpp_inv, segment_sum(u, obs_pt, P))[obs_pt]
-                bc = segment_sum(torch.einsum("oij,oj->oi", Wc3, zz_o), obs_cam, C)
+                y, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
+                zz_o = torch.einsum("pij,pj->pi", Hpp_inv, y)[obs_pt]
+                b = [segment_sum(torch.einsum("oij,oj->oi", Wc3, zz_o), obs_cam, C)]
+                if refine:
+                    b.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, zz_o), obs_grp, G))
+                b = _maybe_psum(b, ax)
+                bc = b[0]
                 Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc)
                 if refine:
                     Hvc = Hvc + torch.einsum("cde,ce->cd", Hcg, vg[cam_group])
-                    bg = segment_sum(torch.einsum("oij,oj->oi", Wg3, zz_o), obs_grp, G)
+                    bg = b[1]
                     Hvg = (torch.einsum("gef,gf->ge", Hgg_d, vg)
                            + segment_sum(torch.einsum("cde,cd->ce", Hcg, vc), cam_group, G))
                     return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}
@@ -749,11 +840,10 @@ def bundle_adjust(
         u = torch.einsum("oij,oi->oj", Wc3, dc[obs_cam])
         if refine:
             u = u + torch.einsum("oij,oi->oj", Wg3, dg[obs_grp])
-        Wtd = segment_sum(u, obs_pt, P)
+        Wtd, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
         dp = -torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"] + Wtd) * pt_upd
         return dc, dg, dp
 
-    mi = cfg.max_iters if max_iters is None else int(max_iters)
     if kernels:
         ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
             pose0, gintr, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam, obs_grp,
@@ -761,12 +851,13 @@ def bundle_adjust(
     else:
         ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr, points,
                                                            refine, cfg, mi)
+    n_obs, = _maybe_psum([torch.sum(obs_mask)], ax)
     info = {
         "initial_cost": init_cost,
         "final_cost": cost,
         "lambda": lam,
         "iterations": n_it,
-        "n_obs": torch.sum(obs_mask),
+        "n_obs": n_obs,
     }
     return gi[cam_group], ps[:, :3], ps[:, 3:6], pts, info
 

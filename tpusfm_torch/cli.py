@@ -6,8 +6,17 @@
 
 Every command runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the CPU; with no CUDA device the card default is
-an error.  Not ported yet, each raising ``NotImplementedError``: ``bench``
-(the port's benchmark is ROADMAP queue 1 item 1) and ``--devices`` above 1.
+an error.  ``reconstruct --devices N`` runs data-parallel over N ranks, one
+process per device, started by torchrun::
+
+  torchrun --nproc-per-node N -m tpusfm_torch.cli reconstruct <image_dir> \
+      --workspace ws --devices N
+
+Each rank joins the group from torchrun's environment (NCCL on cards,
+gloo on the CPU) and takes card LOCAL_RANK; rank 0 prints and writes the
+workspace.  ``serve`` takes one device.  Not ported
+yet, raising ``NotImplementedError``: ``bench`` (the port's benchmark is
+ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ def _add_cfg_args(p: argparse.ArgumentParser):
                    help="focal prior in pixels (overrides EXIF)")
     p.add_argument("--force", action="store_true", help="ignore stage artifacts")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel device count (only 1 is ported)")
+                   help="data-parallel rank count: run under torchrun --nproc-per-node N")
     p.add_argument("--engine", default="incremental",
                    choices=["incremental", "global", "stellar"],
                    help="reconstruction engine (ESfMEngine parity)")
@@ -54,9 +63,22 @@ def _make_cfg(args):
     )
 
 
-def _require_ported(cfg) -> None:
-    if cfg.devices is not None and cfg.devices > 1:
-        raise NotImplementedError("--devices > 1 (data-parallel mesh) is not ported yet")
+def _join_ranks(args, cfg):
+    """With --devices N > 1: join torchrun's group of N ranks (unless this
+    process is in a group already).  Returns (this rank's device, whether
+    this rank prints and writes, whether the group is this call's)."""
+    if not cfg.devices or cfg.devices <= 1:
+        return args.device, True, False
+    import torch.distributed as dist
+
+    from .parallel import mesh as mesh_mod
+
+    device = mesh_mod.rank_device(args.device)
+    made = mesh_mod.initialize_distributed(device=device)
+    if not dist.is_initialized() or dist.get_world_size() != cfg.devices:
+        raise RuntimeError(f"--devices {cfg.devices} needs a group of {cfg.devices} ranks: run "
+                           f"under torchrun --nproc-per-node {cfg.devices}")
+    return device, dist.get_rank() == 0, made
 
 
 def cmd_reconstruct(args):
@@ -66,11 +88,11 @@ def cmd_reconstruct(args):
     from .utils.events import EventBus
 
     cfg = _make_cfg(args)
-    _require_ported(cfg)
+    device, lead, own_group = _join_ranks(args, cfg)
     ws = Path(args.workspace)
     img_dir = ws / "images"
     src = Path(args.image_dir)
-    if src.resolve() != img_dir.resolve():
+    if lead and src.resolve() != img_dir.resolve():
         img_dir.mkdir(parents=True, exist_ok=True)
         for p in sorted(src.iterdir()):
             if p.is_file():
@@ -87,25 +109,35 @@ def cmd_reconstruct(args):
                 print(f"[{ev.type}] {ev.progress*100:5.1f}%", file=sys.stderr, flush=True)
                 last[ev.type] = ev.progress
 
-    threading.Thread(target=printer, daemon=True).start()
-    pipe = StagedPipeline(ws, cfg, bus=bus, force=args.force, device=args.device)
-    print(f"tpusfm_torch: stages on device {pipe.device}", file=sys.stderr, flush=True)
+    if lead:
+        threading.Thread(target=printer, daemon=True).start()
+    pipe = StagedPipeline(ws, cfg, bus=bus, force=args.force, device=device)
+    if lead:
+        print(f"tpusfm_torch: stages on device {pipe.device}"
+              + (f", {cfg.devices} ranks" if pipe.device_mesh is not None else ""),
+              file=sys.stderr, flush=True)
     pipe.preprocess(focal_prior_px=args.focal)
     scene, report = pipe.sparse()
-    print(json.dumps({k: v for k, v in report.items() if k != "engine_log"}, indent=2))
+    if lead:
+        print(json.dumps({k: v for k, v in report.items() if k != "engine_log"}, indent=2))
     if args.dense:
         pts, _ = pipe.dense()
-        print(f"dense: {len(pts)} points -> {ws/'dense.ply'}")
+        if lead:
+            print(f"dense: {len(pts)} points -> {ws/'dense.ply'}")
     if args.mesh:
         verts, faces = pipe.mesh()
-        print(f"mesh: {len(verts)} verts / {len(faces)} faces -> {ws/'mesh.ply'}")
+        if lead:
+            print(f"mesh: {len(verts)} verts / {len(faces)} faces -> {ws/'mesh.ply'}")
+    if own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def cmd_serve(args):
     from .service.http_server import serve
 
     cfg = _make_cfg(args)
-    _require_ported(cfg)
     serve(args.workspace, cfg, host=args.host, port=args.port, device=args.device)
 
 

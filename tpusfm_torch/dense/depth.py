@@ -15,13 +15,16 @@ selection, depth ranges and fusion run on the host in numpy, as in the
 reference.  The reference's loops over planes and views (``lax.map``) are
 batches of planes here and a loop over views.  ``view_batch`` and
 ``pm_batch_px`` (the reference's dispatch sizes) are kept for config parity
-and change nothing the port computes.
+and change nothing the port computes; with a mesh, a batch of
+``view_batch`` views per rank is split over the ranks
+(``parallel.dist_dense``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -269,11 +272,10 @@ def dense_reconstruct(scene, images, rgb_images, cfg: DenseConfig = DenseConfig(
     base + 2 * v + L, base = `seed` or a draw from `generator`, so a seed
     gives the same maps on every device.  `timings`, when a dict, receives
     seconds per stage (setup, sweep, pm_coarse, pm_fine, consistency_fetch,
-    fusion) taken with a device sync at each stage end."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device dense path is not ported yet (parallel/ on torch.distributed, "
-            "ROADMAP queue 1 item 9)")
+    fusion) taken with a device sync at each stage end.  With a `mesh`
+    (``parallel.mesh``), each batch holds view_batch views per rank, padded
+    with repeated views, and its sweep and PatchMatch are split over the
+    ranks (``parallel.dist_dense``); every rank returns the same result."""
     from ..parallel import dist_dense
 
     device = torch.device(device)
@@ -342,34 +344,43 @@ def dense_reconstruct(scene, images, rgb_images, cfg: DenseConfig = DenseConfig(
             sw_norm, sw_K = local_normalize(imgs_t, cfg.window), Ks_t
         fine_cfg = dataclasses.replace(cfg.pm, n_iters=1, fine=True) if pm_ms else cfg.pm
         mark("setup")
-        B = max(cfg.view_batch, 1)
+        n_dev = mesh.shape["shard"] if mesh is not None else 1
+        B = max(cfg.view_batch, 1) * n_dev
+        if mesh is not None:
+            sweep = partial(dist_dense.plane_sweep_sharded, mesh)
+            refine = partial(dist_dense.patchmatch_sharded, mesh)
+        else:
+            sweep, refine = dist_dense.plane_sweep_all_views, dist_dense.patchmatch_all_views
         for s in range(0, len(computed), B):
-            sl = slice(s, s + B)
-            vids = computed[sl]
-            args = (src_idx[sl], R_rel[sl], t_rel[sl])
-            d, c = dist_dense.plane_sweep_all_views(sw_norm, sw_K, *args, inv_d[sl], cfg=cfg)
+            vids = computed[s: s + B]
+            # A sharded batch is padded with repeats of its first view.
+            idx = list(range(s, s + len(vids))) + [s] * (B - len(vids) if mesh is not None else 0)
+            rows = torch.as_tensor(idx, dtype=torch.long, device=device)
+            vids_p = [computed[i] for i in idx]
+            args = (src_idx[rows], R_rel[rows], t_rel[rows])
+            d, c = sweep(sw_norm, sw_K, *args, inv_d[rows], cfg=cfg)
             mark("sweep")
             if cfg.patchmatch:
                 inv_init = 1.0 / torch.clamp(d, min=1e-9)
-                lo_p, hi_p = inv_lo[sl], inv_hi[sl]
+                lo_p, hi_p = inv_lo[rows], inv_hi[rows]
                 n_up = None
                 if pm_ms:
                     inv_c = inv_init if sweep_half else inv_init[:, ::2, ::2]
-                    gens = [torch.Generator().manual_seed(base + 2 * v) for v in vids]
-                    dch, _cch, nch = dist_dense.patchmatch_all_views(
-                        imgs_half_t, Ks_half_t, *args, inv_c, lo_p, hi_p, gens, cfg.pm)
+                    gens = [torch.Generator().manual_seed(base + 2 * v) for v in vids_p]
+                    dch, _cch, nch = refine(imgs_half_t, Ks_half_t, *args, inv_c, lo_p, hi_p,
+                                            gens, cfg.pm)
                     inv_init = _up2(1.0 / torch.clamp(dch, min=1e-9), H, W)
                     inv_init = torch.minimum(torch.maximum(inv_init, lo_p[:, None, None]),
                                              hi_p[:, None, None])
                     n_up = _up2(nch, H, W)
                     mark("pm_coarse")
-                gens = [torch.Generator().manual_seed(base + 2 * v + 1) for v in vids]
-                d, c, _n = dist_dense.patchmatch_all_views(
-                    imgs_t, Ks_t, *args, inv_init, lo_p, hi_p, gens, fine_cfg, n_init=n_up)
+                gens = [torch.Generator().manual_seed(base + 2 * v + 1) for v in vids_p]
+                d, c, _n = refine(imgs_t, Ks_t, *args, inv_init, lo_p, hi_p, gens, fine_cfg,
+                                  n_init=n_up)
                 mark("pm_fine")
             vt = torch.as_tensor(vids, dtype=torch.long, device=device)
-            depths_t[vt] = d
-            costs_t[vt] = c
+            depths_t[vt] = d[:len(vids)]
+            costs_t[vt] = c[:len(vids)]
             progress("dense", min(1.0, (s + B) / len(computed)) * 0.8)
 
     # Consistency neighbours must themselves have computed depth maps.

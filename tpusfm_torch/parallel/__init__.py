@@ -1,2 +1,3 @@
-"""View-packed dense dispatch (port of ``tpusfm/parallel``; the single-device
-part of ``dist_dense`` so far)."""
+"""Multi-device runtime on torch.distributed (port of ``tpusfm/parallel``):
+the process-group mesh, sharded matching, ring matching, distributed BA
+and view-sharded dense depth."""

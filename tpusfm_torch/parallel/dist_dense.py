@@ -1,11 +1,14 @@
-"""Packed per-view dense depth estimation.
+"""View-cluster sharded dense depth estimation (port of
+``tpusfm/parallel/dist_dense.py``).
 
-Port of the single-device part of ``tpusfm/parallel/dist_dense.py``.  The
-per-view sweep inputs (source poses, depth ranges) are packed into per-view
-arrays so that one call runs a batch of reference views: ``src_idx`` is
-(V, S+1) int32 with the S source view ids followed by the reference view id
-in the last slot, and the intrinsics are per view (V, 3, 3).  The sharded
-forms wait for ``parallel/`` on torch.distributed.
+The per-view sweep inputs (source poses, depth ranges) are packed into
+per-view arrays so that one call runs a batch of reference views:
+``src_idx`` is (V, S+1) int32 with the S source view ids followed by the
+reference view id in the last slot, and the intrinsics are per view (V, 3,
+3).  The sharded forms give each rank its contiguous block of the packed
+views (the images replicated: a view's sources are arbitrary) and return
+the maps of every view to every rank through one all_gather.  PatchMatch's
+draws come per view, so which rank computes a view changes nothing.
 """
 
 from __future__ import annotations
@@ -16,9 +19,7 @@ import torch
 from ..core import lie
 from ..dense import depth as depth_mod
 from ..dense import patchmatch as pm_mod
-
-_SHARDED = ("the sharded dense path is not ported yet (parallel/ on torch.distributed, "
-            "ROADMAP queue 1 item 9)")
+from . import mesh as mesh_mod
 
 
 def plane_sweep_all_views(norm_images, Ks, src_idx, R_rel, t_rel, inv_depths,
@@ -37,8 +38,26 @@ def plane_sweep_all_views(norm_images, Ks, src_idx, R_rel, t_rel, inv_depths,
     return torch.stack(out_d), torch.stack(out_c)
 
 
-def plane_sweep_sharded(mesh, *args, **kw):
-    raise NotImplementedError(_SHARDED)
+def _block(mesh, axis: str, src_idx, what: str) -> slice:
+    """This rank's contiguous block of the packed views."""
+    n = mesh.shape[axis]
+    B = src_idx.shape[0]
+    if B % n:
+        raise ValueError(f"view count {B} must divide mesh axis {n} (pad with repeated views)")
+    mesh_mod.check_same(mesh, what, views=B)
+    return slice(mesh.rank * (B // n), (mesh.rank + 1) * (B // n))
+
+
+def plane_sweep_sharded(mesh, norm_images, Ks, src_idx, R_rel, t_rel, inv_depths,
+                        cfg: depth_mod.DenseConfig = depth_mod.DenseConfig(),
+                        axis: str = "shard"):
+    """``plane_sweep_all_views`` with the packed views split over the mesh
+    (their count a multiple of its size; pad with repeated views).  Every
+    rank gets (depths (B, H, W), costs (B, H, W))."""
+    sl = _block(mesh, axis, src_idx, "plane_sweep_sharded")
+    d, c = plane_sweep_all_views(norm_images, Ks, src_idx[sl], R_rel[sl], t_rel[sl],
+                                 inv_depths[sl], cfg)
+    return mesh_mod.all_gather(mesh, d), mesh_mod.all_gather(mesh, c)
 
 
 def patchmatch_all_views(images_raw, Ks, src_idx, R_rel, t_rel, inv_init, inv_lo, inv_hi,
@@ -60,8 +79,20 @@ def patchmatch_all_views(images_raw, Ks, src_idx, R_rel, t_rel, inv_init, inv_lo
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def patchmatch_sharded(mesh, *args, **kw):
-    raise NotImplementedError(_SHARDED)
+def patchmatch_sharded(mesh, images_raw, Ks, src_idx, R_rel, t_rel, inv_init, inv_lo, inv_hi,
+                       generators, pm_cfg, n_init=None, draws=None, axis: str = "shard"):
+    """``patchmatch_all_views`` with the packed views split over the mesh:
+    each rank refines its block with those views' generators (or draws).
+    Every rank gets (depth, cost, normal) of all B views."""
+    sl = _block(mesh, axis, src_idx, "patchmatch_sharded")
+
+    def part(x):
+        return None if x is None else x[sl]
+
+    outs = patchmatch_all_views(images_raw, Ks, src_idx[sl], R_rel[sl], t_rel[sl], inv_init[sl],
+                                inv_lo[sl], inv_hi[sl], part(generators), pm_cfg,
+                                n_init=part(n_init), draws=part(draws))
+    return tuple(mesh_mod.all_gather(mesh, x) for x in outs)
 
 
 def pack_sweep_inputs(scene, views, cfg: depth_mod.DenseConfig, n_planes: int, ranges=None):

@@ -54,7 +54,7 @@ class PipelineConfig:
     focal_prior_px: float | None = None
     feature_batch: int = 8             # views per SIFT batch
     self_calibrate: bool = True        # refine one RADIAL3 block per camera group
-    devices: int | None = None         # > 1 (data-parallel mesh) is not ported yet
+    devices: int | None = None         # N > 1: this process is one of N ranks (sparse.get_mesh)
 
     def to_json(self) -> str:
         def enc(o):

@@ -18,10 +18,16 @@ Port of ``tpusfm/pipeline/sparse.py``, stage for stage:
 ``run_sparse`` takes its device explicitly and picks none itself.  It turns
 TF32 off for float32 matrix products and convolutions (the SIFT blur would
 otherwise run in TF32 on the card and move extrema).  Chunk sizes follow
-the reference's rule so that both packages batch alike.  Not ported yet,
-raising ``NotImplementedError``: more than one device.  The dense and mesh
-stages that follow are ``dense.depth.dense_reconstruct`` and
-``dense.meshing``.
+the reference's rule so that both packages batch alike.
+
+``cfg.devices = N`` runs the pipeline data-parallel: this process is one of
+the N ranks of an initialised ``torch.distributed`` group (``torchrun
+--nproc-per-node N``, or ``parallel.mesh.initialize_distributed``), every
+rank runs this program on the same inputs with the same seed, matching is
+split over the ranks by pairs (``parallel.dist_matching``) and full BAs
+past the engine's size gate by observations (``parallel.dist_ba``).
+Every rank returns the same scene.  The dense and mesh stages that follow
+are ``dense.depth.dense_reconstruct`` and ``dense.meshing``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import Counter
+from functools import partial
 
 import numpy as np
 import torch
@@ -46,6 +53,17 @@ from .config import PipelineConfig
 
 def _noop_progress(type, progress, **kw):
     del type, progress, kw
+
+
+def get_mesh(cfg: PipelineConfig, device=None):
+    """The mesh of the pipeline's data-parallel mode (cfg.devices > 1) over
+    the initialised process group, with `device` as this rank's device, or
+    None for one device.  Outside a group of cfg.devices ranks it raises."""
+    if not cfg.devices or cfg.devices <= 1:
+        return None
+    from ..parallel import mesh as mesh_mod
+
+    return mesh_mod.make_mesh(cfg.devices, device=device)
 
 
 def detect_features(images, cfg: PipelineConfig, progress=_noop_progress, masks=None, *,
@@ -130,11 +148,13 @@ def preemptive_filter_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: Pi
 
 
 def match_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: PipelineConfig,
-                progress=_noop_progress):
+                progress=_noop_progress, mesh=None):
     """Ratio-test matching for every pair, chunked over the pair list.
     Returns (match_idx (P, N) int32, match_valid (P, N) bool) on the host.
     With cfg.matching.preemptive, the pairs the prefilter drops are not
-    matched: their rows come back all invalid."""
+    matched: their rows come back all invalid.  With a mesh, each chunk
+    (scaled by the mesh's size, so every rank matches a full batch) is split
+    over the ranks."""
     P = len(pair_list)
     N = feats.kp.shape[1]
     idx_out = np.zeros((P, N), np.int32)
@@ -144,14 +164,20 @@ def match_pairs(feats: sift.Features, pair_list: np.ndarray, cfg: PipelineConfig
         ch = min(8 * ch, 256)
     elif P <= 256:
         ch = max(ch, 32 * ((P + 31) // 32))  # one batch for small collections
+    match = match_mod.match_on_device
+    if mesh is not None:
+        from ..parallel import dist_matching
+
+        ch *= mesh.shape["shard"]
+        match = partial(dist_matching.match_pairs_sharded, mesh)
     rows = np.arange(P)
     if cfg.matching.preemptive and P > 0:
         rows = rows[preemptive_filter_pairs(feats, pair_list, cfg, progress)]
     work = pair_list[rows]
     for s in range(0, len(work), ch):
         pl = work[s: s + ch]
-        idx, ok = match_mod.match_on_device(*_chunk_pairs(feats.desc, feats.mask, _pad_rows(pl, ch)),
-                                            cfg.matching.ratio, cfg.matching.cross_check)
+        idx, ok = match(*_chunk_pairs(feats.desc, feats.mask, _pad_rows(pl, ch)),
+                        cfg.matching.ratio, cfg.matching.cross_check)
         out_rows = rows[s: s + len(pl)]
         idx_out[out_rows] = idx.cpu().numpy()[: len(pl)]
         valid_out[out_rows] = ok.cpu().numpy()[: len(pl)]
@@ -273,11 +299,12 @@ def filter_pairs(feats: sift.Features, pair_list, match_idx, match_valid, cfg: P
 
 def reconstruct(feats: sift.Features, intr, pair_list, match_idx, match_valid,
                 cfg: PipelineConfig, generator: torch.Generator | None = None,
-                progress=_noop_progress, cam_group=None, init_scene=None):
+                progress=_noop_progress, cam_group=None, mesh=None, init_scene=None):
     """Tracks + the engine of cfg.engine_type on the features' device.
     cam_group: optional (V,) intrinsic-group ids (one self-calibrating BA
-    block each); init_scene: optional prior Scene over the same track table,
-    which seeds the incremental engine (the others start from scratch)."""
+    block each); mesh: optional, shards the engine's large full BAs;
+    init_scene: optional prior Scene over the same track table, which seeds
+    the incremental engine (the others start from scratch)."""
     V, N = feats.mask.shape
     track_ids, n_tracks = tracks_mod.build_tracks(V, N, pair_list, match_idx, match_valid)
     eng_cfg = cfg.engine
@@ -288,11 +315,11 @@ def reconstruct(feats: sift.Features, intr, pair_list, match_idx, match_valid,
     if cfg.engine_type in ("global", "stellar"):
         cls = global_sfm.GlobalEngine if cfg.engine_type == "global" else stellar.StellarEngine
         engine = cls(kp, np.asarray(intr), track_ids, n_tracks, progress=progress,
-                     cam_group=cam_group, inc_cfg=eng_cfg, device=feats.kp.device)
+                     cam_group=cam_group, inc_cfg=eng_cfg, mesh=mesh, device=feats.kp.device)
     else:
         engine = incremental.IncrementalEngine(
             kp, np.asarray(intr), track_ids, n_tracks, eng_cfg,
-            progress=progress, cam_group=cam_group, device=feats.kp.device)
+            progress=progress, cam_group=cam_group, mesh=mesh, device=feats.kp.device)
         if init_scene is not None:
             engine.seed_from_scene(init_scene)
     scene = engine.run(generator)
@@ -306,10 +333,10 @@ def run_sparse(images, intr, cfg: PipelineConfig = PipelineConfig(), *, device,
     sparse scene.  intr (7,) shared or (V, 7); cam_group optional (V,)
     shared-intrinsic group ids.  Random draws come from `generator` (a
     torch.Generator on `device`), made from `seed` when none is given.
-    Returns (scene, report dict)."""
-    if cfg.devices is not None and cfg.devices > 1:
-        raise NotImplementedError("devices > 1 (data-parallel mesh) is not ported yet")
+    With cfg.devices > 1 this process is one rank of the mesh (get_mesh)
+    and `device` its device.  Returns (scene, report dict)."""
     device = torch.device(device)
+    mesh = get_mesh(cfg, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if generator is None:
@@ -334,7 +361,7 @@ def run_sparse(images, intr, cfg: PipelineConfig = PipelineConfig(), *, device,
 
     t1 = time.time()
     pair_list = generate_pairs(images.shape[0], cfg, feats=feats)
-    match_idx, match_valid = match_pairs(feats, pair_list, cfg, progress)
+    match_idx, match_valid = match_pairs(feats, pair_list, cfg, progress, mesh=mesh)
     times["matching"] = time.time() - t1
 
     t2 = time.time()
@@ -346,7 +373,7 @@ def run_sparse(images, intr, cfg: PipelineConfig = PipelineConfig(), *, device,
     t3 = time.time()
     scene, engine = reconstruct(
         feats, intr, pair_list[pair_ok], match_idx[pair_ok], match_valid[pair_ok],
-        cfg, generator, progress, cam_group=cam_group)
+        cfg, generator, progress, cam_group=cam_group, mesh=mesh)
     times["reconstruction"] = time.time() - t3
 
     t4 = time.time()

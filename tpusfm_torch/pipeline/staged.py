@@ -25,10 +25,23 @@ Stages run on the pipeline's device (``"cuda"`` unless the caller asks for
 the CPU; no CUDA device is an error, not a CPU run).  Random draws come from
 one ``torch.Generator`` on that device, seeded from ``seed``, as in
 ``run_sparse``.  The images, geo-registration and the report are host work.
+
+With ``cfg.devices = N`` the process is one of N ranks
+(``pipeline.sparse.get_mesh``): the sparse and dense stages split their
+matching, large BAs and depth maps over the ranks, every rank computes the
+same result, and only rank 0 writes the workspace, so no two processes
+write one file.  Each stage starts and ends with a barrier, and the next
+stage starts after rank 0's files are written.  What a stage finds in the
+workspace (features, match tables, a scene to resume from) is what rank 0
+saw, broadcast before it writes anything.  Features are detected by rank 0
+alone, and the mesh stage (no sharded part) runs on rank 0 alone; the
+barriers that wait on such work take ``parallel.mesh.WAIT_S``, not a
+collective's timeout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -36,10 +49,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..features import sift
 from ..io import images as im_io
 from ..io import ply
+from ..parallel import mesh as mesh_mod
 from ..sfm import scene as scene_mod
 from ..utils.events import EventBus
 from . import sparse as sp
@@ -74,13 +89,20 @@ class StagedPipeline:
         self.device = resolve_device(device)
         self.seed = seed
         self.ws = Path(workspace)
-        self.ws.mkdir(parents=True, exist_ok=True)
-        (self.ws / "images").mkdir(exist_ok=True)
         self.cfg = cfg
+        self.device_mesh = sp.get_mesh(cfg, self.device)
+        # Rank 0 alone writes the workspace; the others wait on it in the
+        # stages' barriers.
+        self.writer = self.device_mesh is None or self.device_mesh.rank == 0
+        self._waiting = (None if self.device_mesh is None
+                         else mesh_mod.waiting_group(self.device_mesh))
         self.bus = bus or EventBus()
         self.force = force
         self.progress = self.bus.progress_fn()
-        (self.ws / "config.json").write_text(cfg.to_json())
+        if self.writer:
+            self.ws.mkdir(parents=True, exist_ok=True)
+            (self.ws / "images").mkdir(exist_ok=True)
+            (self.ws / "config.json").write_text(cfg.to_json())
 
     # -- helpers -----------------------------------------------------------
 
@@ -94,10 +116,29 @@ class StagedPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _rank0_sees(self, *flags: bool) -> list[bool]:
+        """`flags` as rank 0 computed them, on every rank."""
+        if self.device_mesh is None:
+            return list(flags)
+        return mesh_mod.broadcast_flags(self.device_mesh, flags)
+
+    @contextlib.contextmanager
+    def _stage(self):
+        """Brackets a stage with a barrier of the ranks at each end."""
+        if self._waiting is not None:
+            dist.barrier(group=self._waiting)
+        yield
+        if self._waiting is not None:
+            dist.barrier(group=self._waiting)
+
     # -- stage 1: preprocessing (ingest + features) ------------------------
 
     def preprocess(self, focal_prior_px: float | None = None):
         """~ preload(): readImagesCluster + detectFeature (main.cpp:120-129)."""
+        with self._stage():
+            return self._preprocess(focal_prior_px)
+
+    def _preprocess(self, focal_prior_px):
         _no_tf32()
         self.progress("preprocessing", 0.0)
         paths = im_io.list_images(self.image_dir())
@@ -109,12 +150,13 @@ class StagedPipeline:
             )
             for p in paths
         ]
-        (self.ws / "views.json").write_text(json.dumps(
-            [dataclasses.asdict(r) for r in records], indent=2
-        ))
+        if self.writer:
+            (self.ws / "views.json").write_text(json.dumps(
+                [dataclasses.asdict(r) for r in records], indent=2
+            ))
         self.progress("preprocessing", 0.5)
 
-        if self._done("features.npz"):
+        if self._done("features.npz") or not self.writer:
             self.progress("preprocessing", 1.0)
             return records
         images = im_io.load_images_gray(paths)
@@ -181,11 +223,17 @@ class StagedPipeline:
         colorize (main.cpp:131-146).  Random draws come from `generator`
         (a torch.Generator on the pipeline's device), made from the
         pipeline's seed when none is given."""
-        if self.cfg.devices is not None and self.cfg.devices > 1:
-            raise NotImplementedError("devices > 1 (data-parallel mesh) is not ported yet")
+        with self._stage():
+            return self._sparse(generator)
+
+    def _sparse(self, generator):
         t0 = time.time()
         _no_tf32()
-        if not (self.ws / "features.npz").exists():
+        # What the workspace holds, as rank 0 saw it before writing anything.
+        have_features, have_putative, have_geometric, have_scene = self._rank0_sees(
+            (self.ws / "features.npz").exists(), self._done("matches_putative.npz"),
+            self._done("matches_geometric.npz"), self._done("scene.npz"))
+        if not have_features:
             self.preprocess()
         feats = self._load_features()
         intr = self._intrinsics()
@@ -197,12 +245,14 @@ class StagedPipeline:
 
         from ..io import reports
 
-        if self._done("matches_putative.npz"):
+        if have_putative:
             d = np.load(self.ws / "matches_putative.npz")
             pair_list, mi, mv = d["pairs"], d["idx"], d["valid"]
         else:
             pair_list = sp.generate_pairs(V, self.cfg, feats=feats)
-            mi, mv = sp.match_pairs(feats, pair_list, self.cfg, self.progress)
+            mi, mv = sp.match_pairs(feats, pair_list, self.cfg, self.progress,
+                                    mesh=self.device_mesh)
+        if not have_putative and self.writer:
             np.savez_compressed(self.ws / "matches_putative.npz",
                                 pairs=pair_list, idx=mi, valid=mv)
             # Diagnostics parity (.cpp:1010-1019): adjacency SVG + stats.
@@ -211,12 +261,13 @@ class StagedPipeline:
             (self.ws / "putative_graph_stats.json").write_text(
                 json.dumps(reports.graph_stats(V, pair_list, counts))
             )
-        if self._done("matches_geometric.npz"):
+        if have_geometric:
             d = np.load(self.ws / "matches_geometric.npz")
             pair_list, mi, mv, pair_ok = d["pairs"], d["idx"], d["valid"], d["pair_ok"]
         else:
             mi, mv, pair_ok = sp.filter_pairs(feats, pair_list, mi, mv, self.cfg, generator,
                                               self.progress, intr=intr, img_hw=img_hw)
+        if not have_geometric and self.writer:
             np.savez_compressed(self.ws / "matches_geometric.npz",
                                 pairs=pair_list, idx=mi, valid=mv, pair_ok=pair_ok)
             # Diagnostics parity (.cpp:1249-1269).
@@ -232,7 +283,7 @@ class StagedPipeline:
         # seeds the engine (EXISTING_POSES, sparseBuilder.cpp:188-193): only
         # unregistered views are resected on a re-run.
         init_scene = None
-        if not self.force and (self.ws / "scene.npz").exists():
+        if have_scene:
             try:
                 prev = scene_mod.load_scene_npz(str(self.ws / "scene.npz"), device=self.device)
                 if int(prev.cam_mask.sum()) >= 2:
@@ -242,7 +293,7 @@ class StagedPipeline:
         scene, engine = sp.reconstruct(
             feats, intr, pair_list[pair_ok], mi[pair_ok], mv[pair_ok],
             self.cfg, generator, self.progress, cam_group=self._intrinsic_groups(),
-            init_scene=init_scene,
+            mesh=self.device_mesh, init_scene=init_scene,
         )
         # colorize (~ colorize(), sparseBuilder.cpp:1601)
         paths = im_io.list_images(self.image_dir())
@@ -267,6 +318,37 @@ class StagedPipeline:
             except ValueError as e:
                 self.progress("sparse", 0.95, warning=f"geo-registration: {e}")
 
+        report = self._sparse_report(scene, engine, V, geo_info, t0)
+        if self.writer:
+            self._write_sparse(scene, rgb, paths, report)
+        self.progress("done", 1.0, n_points=report["n_points"])
+        return scene, report
+
+    def _sparse_report(self, scene, engine, V, geo_info, t0) -> dict:
+        reg = scene.cam_mask.cpu().numpy()
+        pm = scene.point_mask.cpu().numpy()
+        obs_mask = scene.obs_mask.cpu().numpy()
+        self.sync()
+        return {
+            "n_views": int(V),
+            "n_registered": int(reg.sum()),
+            "n_points": int(pm.sum()),
+            "n_obs": int(obs_mask.sum()),
+            "mean_reproj_px": float(
+                scene.reprojection_errors().cpu().numpy()[obs_mask].mean()
+            ) if obs_mask.any() else None,
+            "elapsed_s": round(time.time() - t0, 2),
+            "engine_log": engine.log,
+            "geo": geo_info,
+            "device": str(self.device),
+            "recon_phase_s": {k: round(v, 3) for k, v in sorted(engine.timings.items())},
+        }
+
+    def _write_sparse(self, scene, rgb, paths, report) -> None:
+        """The sparse stage's files: scene.npz, the COLMAP model, the PLY and
+        PCD clouds, the viewer and the report."""
+        from ..io import reports
+
         scene_mod.save_scene_npz(str(self.ws / "scene.npz"), scene)
         # External-tool interchange (~ DenseBuilder::save -> .mvs,
         # DenseBuilder.h:54-146): the COLMAP text model.
@@ -281,28 +363,12 @@ class StagedPipeline:
             self.progress("sparse", 1.0, warning=f"colmap export failed: {e}")
         reg = scene.cam_mask.cpu().numpy()
         pm = scene.point_mask.cpu().numpy()
-        obs_mask = scene.obs_mask.cpu().numpy()
         points = scene.points.cpu().numpy()[pm]
         colors = scene.colors.cpu().numpy()[pm]
         centers = scene.camera_centers().cpu().numpy()[reg]
         ply.write_ply_points(self.ws / "cloud_and_poses.ply", points, camera_centers=centers)
         ply.write_ply_points(self.ws / "colorized.ply", points, colors)
         ply.write_pcd_points(self.ws / "colorized.pcd", points, colors)
-        self.sync()
-        report = {
-            "n_views": int(V),
-            "n_registered": int(reg.sum()),
-            "n_points": int(pm.sum()),
-            "n_obs": int(obs_mask.sum()),
-            "mean_reproj_px": float(
-                scene.reprojection_errors().cpu().numpy()[obs_mask].mean()
-            ) if obs_mask.any() else None,
-            "elapsed_s": round(time.time() - t0, 2),
-            "engine_log": engine.log,
-            "geo": geo_info,
-            "device": str(self.device),
-            "recon_phase_s": {k: round(v, 3) for k, v in sorted(engine.timings.items())},
-        }
         # Interactive inspection artifact (WorldStructure::show,
         # src/world/WorldStructure.h:108-155), served at /files/viewer.html.
         from ..io import viewer as viewer_mod
@@ -316,8 +382,6 @@ class StagedPipeline:
             self.ws / "report.html", report,
             [str(self.ws / "putative_matches.svg"), str(self.ws / "geometric_matches.svg")],
         )
-        self.progress("done", 1.0, n_points=report["n_points"])
-        return scene, report
 
     def load_scene(self):
         return scene_mod.load_scene_npz(str(self.ws / "scene.npz"), device=self.device)
@@ -326,6 +390,10 @@ class StagedPipeline:
 
     def dense(self):
         """~ denseWork() (main.cpp:148-166): depth maps + fused cloud."""
+        with self._stage():
+            return self._dense()
+
+    def _dense(self):
         from ..dense import depth as dense_depth
 
         scene = self.load_scene()
@@ -339,7 +407,8 @@ class StagedPipeline:
             from ..ops.image import undistort_image
 
             und_dir = self.ws / "undistorted_images"
-            und_dir.mkdir(exist_ok=True)
+            if self.writer:
+                und_dir.mkdir(exist_ok=True)
             g_list, c_list = [], []
             for i in range(len(images)):
                 it = torch.as_tensor(intr_np[min(i, len(intr_np) - 1)], device=self.device)
@@ -348,6 +417,8 @@ class StagedPipeline:
                 g_list.append(undistort_image(g, it).cpu().numpy())
                 cu = undistort_image(c, it).cpu().numpy()
                 c_list.append(np.clip(cu, 0, 255).astype(np.uint8))
+                if not self.writer:
+                    continue
                 try:
                     from PIL import Image as _PILImage
 
@@ -361,8 +432,15 @@ class StagedPipeline:
             scene = scene.replace(intr=torch.as_tensor(intr_np, device=self.device))
         pts, cols, maps = dense_depth.dense_reconstruct(
             scene, images, rgb, cfg=self.cfg.dense, progress=self.progress,
-            return_maps=True, seed=self.seed, device=self.device,
+            return_maps=True, seed=self.seed, mesh=self.device_mesh,
+            device=self.device,
         )
+        if self.writer:
+            self._write_dense(scene, pts, cols, maps)
+        self.progress("dense", 1.0, n_points=int(len(pts)))
+        return pts, cols
+
+    def _write_dense(self, scene, pts, cols, maps) -> None:
         ply.write_ply_points(self.ws / "dense.ply", pts, cols)
         np.savez_compressed(self.ws / "depth_maps.npz", **maps)
         # Refresh the viewer with the dense cloud.
@@ -377,12 +455,17 @@ class StagedPipeline:
                 title="tpusfm dense reconstruction")
         except Exception as e:
             self.progress("dense", 1.0, warning=f"viewer write failed: {e}")
-        self.progress("dense", 1.0, n_points=int(len(pts)))
-        return pts, cols
 
     def mesh(self):
         """~ meshWork() (main.cpp:168-193): TSDF + marching tetrahedra from
-        the dense stage's depth maps (falls back to the point cloud)."""
+        the dense stage's depth maps (falls back to the point cloud).  With a
+        mesh of ranks, rank 0 alone runs it; the others return (None, None)."""
+        with self._stage():
+            if self.writer:
+                return self._mesh()
+        return None, None
+
+    def _mesh(self):
         from ..dense import meshing
 
         paths = im_io.list_images(self.image_dir())

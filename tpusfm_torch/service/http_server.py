@@ -35,6 +35,11 @@ from ..utils.events import EventBus
 
 class ServiceState:
     def __init__(self, workspace: str, cfg: PipelineConfig, *, device="cuda", seed: int = 0):
+        if cfg.devices is not None and cfg.devices > 1:
+            raise NotImplementedError(
+                "the service runs one process: devices > 1 would need every stage command "
+                "broadcast to the other ranks (ROADMAP queue 1); run the CLI under torchrun "
+                "for a multi-device reconstruction")
         self.bus = EventBus()
         self.pipeline = StagedPipeline(workspace, cfg, bus=self.bus, device=device, seed=seed)
         self.lock = threading.Lock()

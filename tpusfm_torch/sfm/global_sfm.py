@@ -252,7 +252,7 @@ class GlobalEngine:
     incremental engine's, whose machinery builds the structure."""
 
     def __init__(self, kp, intr, track_ids, n_tracks, cfg: GlobalConfig = GlobalConfig(),
-                 progress=None, cam_group=None, inc_cfg=None, *, device):
+                 progress=None, cam_group=None, inc_cfg=None, mesh=None, *, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.intr = np.asarray(intr, np.float32)
@@ -262,7 +262,7 @@ class GlobalEngine:
         self.progress = progress or (lambda *a, **k: None)
         self._inc = inc_mod.IncrementalEngine(
             kp, intr, track_ids, n_tracks, inc_cfg or inc_mod.IncrementalConfig(),
-            cam_group=cam_group, device=self.device)
+            cam_group=cam_group, mesh=mesh, device=self.device)
         # The reference rebinds its log to the inner engine's at the end of
         # a run, which drops lines logged before (the stellar fallback's);
         # here both are one list from the start.

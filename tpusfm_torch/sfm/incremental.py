@@ -52,8 +52,9 @@ class IncrementalConfig:
     ba_every: int = 4                   # global BA every k registrations
     final_ba_iters: int = 25
     step_ba_iters: int = 8
-    # Multi-device (mesh) BA gate of the reference; read only when the
-    # pipeline runs on more than one device, which is not ported yet.
+    # Mesh-mode BA size gate: with a mesh, a full BA shards its observation
+    # table over the ranks only when each rank gets at least this many live
+    # observations; smaller solves stay on one device.
     mesh_min_obs_per_device: int = 8192
     # Windowed local step-BA: once the live map exceeds `ba_local_from_obs`
     # observations, periodic step-BAs optimize only the last
@@ -198,9 +199,12 @@ class IncrementalEngine:
     """
 
     def __init__(self, kp, intr, track_ids, n_tracks, cfg: IncrementalConfig = IncrementalConfig(),
-                 progress=None, cam_group=None, *, device):
+                 progress=None, cam_group=None, mesh=None, *, device):
         self.cfg = cfg
         self.device = torch.device(device)
+        # Optional mesh (parallel.mesh): full BAs past the size gate shard
+        # their observation table over its ranks (parallel.dist_ba).
+        self.mesh = mesh
         self.kp = np.asarray(kp)[..., :2].astype(np.float32)
         self.intr = np.asarray(intr, np.float32)
         self.track_ids = np.asarray(track_ids)
@@ -804,12 +808,28 @@ class IncrementalEngine:
         free = self.registered.copy()
         free[self.gauge_cam] = False
         args = self._scene_arrays()
-        self.ba_solves.append((kind, self.V, len(self.points), self.O))
         kw = {}
         if self.cam_group is not None:
             kw = dict(cam_group=self._dev(self.cam_group), n_groups=self.n_groups)
-        intr, rot, t, pts, info = _to_host(ba.bundle_adjust(
-            cfg=cfg, max_iters=iters, cam_free_mask=self._dev(free), **args, **kw))
+        live = self._obs_mask()
+        if (self.mesh is not None
+                and int(live.sum()) >= self.cfg.mesh_min_obs_per_device * self.mesh.shape["shard"]):
+            from ..parallel import dist_ba
+
+            self.ba_solves.append((kind + " sharded", self.V, len(self.points), self.O))
+            obs = dist_ba.shard_obs_table(
+                self.obs_cam, self.obs_pt, self.obs_uv, live,
+                self.mesh.shape["shard"], device=self.device)
+            for k in ("obs_cam", "obs_pt", "obs_uv", "obs_mask"):
+                args.pop(k)
+            out = dist_ba.bundle_adjust_sharded(
+                self.mesh, **args, obs_cam=obs[0], obs_pt=obs[1], obs_uv=obs[2],
+                obs_mask=obs[3], cfg=cfg, cam_free_mask=self._dev(free), max_iters=iters, **kw)
+        else:
+            self.ba_solves.append((kind, self.V, len(self.points), self.O))
+            out = ba.bundle_adjust(cfg=cfg, max_iters=iters, cam_free_mask=self._dev(free),
+                                   **args, **kw)
+        intr, rot, t, pts, info = _to_host(out)
         # One batched host readback per BA call.
         self.aa = np.array(rot)
         self.t = np.array(t)
