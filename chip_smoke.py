@@ -96,7 +96,12 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    calls on W in camera order), K5 (D = 6, 7, 9), K6, K7 against their
    twins at the shapes paths A and B gave them, as phase 8; K6 at path B
    on the captured row-major table and on a lane-major copy, bit-equal,
-   both timed;
+   both timed; then the reference's sublane entry points (segsum_table,
+   segsum_sorted, schur_fwd, schur_bwd: the same tables row-major (O, k),
+   launching K6, K7, K5 and K4; K6 and K7 read the table in place, K4
+   through its row-major permuted read, K5 a lane-major copy) at
+   path B's shapes and at path A's D = 7, as phase 8 (no main path runs
+   them: their launches are 0);
 13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
    to their twins with zero rows outside the table, timed beside
    index_select; K6 at the gather run's shapes (k = 42 and 36);
@@ -187,15 +192,35 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    K1 run locally;
 30. one NCCL world of 1 rank in this process around phase 26's solve (the
    NCCL path starts and all-reduces on the card), its cost within 1% of
-   one device's.
+   one device's;
+31. the HTTP service on 2 ranks (tpusfm_torch.tools.service_rung
+   ranks_main): one world of 2 gloo ranks sharing the card, rank 0 serving
+   on 127.0.0.1 and driving it as a client, rank 1 following its stage
+   commands, each rank resetting the launch counts just before and reading
+   them just after; service B's 200 photographs through /upload,
+   /preprocessing and /sparse: phase 23's bars (>= 190/200, ATE <= 0.10,
+   > 1000 points, fx within FX_TOL, geo rms < 1 m with >= 190 fixes), the
+   putative match table bit-equal to phase 23's, registered >= phase 23's
+   - 2, points within 10% of it, sharded BAs in report.json's ba_solves,
+   and on each rank K1 bf16 only, K2 refine, K5 at D = 6 and 7 and K4
+   launched; each rank's stage seconds printed; then service A's first 6
+   frames through all four stages on the same two ranks: >= 5/6
+   registered, ATE <= 0.05, >= 300,000 finite dense points, > 1000 mesh
+   faces; then rank 0's last call of each kernel variant of service B (K1
+   bf16 on its share of a chunk, K2 held and refine, K3, K4 and K5 at
+   D = 6 and 7, on its half of the point-space tables) against the twins,
+   as phases 8 and 12; the world is given SERVICE_RANKS_S to end.
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
 shape, a second K4 entry at path B's cameras, a second K1 entry at the
 200-view chunk, K1-K4 entries at the pod rung's shapes, K2-K4 entries at
 the global run's final BA and K2 refine, K5 and K4 entries at the stellar
-run's, and K5's held mode (D = 6) at the sharded 200-view run's rank 0:
-route, source,
+run's, K5's held mode (D = 6) at the sharded 200-view run's rank 0, K1,
+K2 (held, refine), K3, K4 and K5 (D = 6, 7) at rank 0 of the two-rank
+service B (their launches that rank's in phase 31), and
+the four sublane entry points at path B's shapes (launches 0): route,
+source,
 the TPU kernel it replaces, launches in its main-path run (the 20-view run
 for K1, the held 200-view run for the second K1 entry and K2-K4, the
 500-camera kernel-path solve of phase 10 for the second K3 and K2 entries,
@@ -260,6 +285,22 @@ STELLAR = {"linearize_reduce_radial3_t": "linearize_reduce_radial3_t (stellar 20
                                          "refine)",
            "schur_fwd_t": "schur_fwd_t (stellar 200 final BA, D=7)",
            "schur_bwd_t": "schur_bwd_t (stellar 200 final BA, one group, D=7)"}
+# How long phase 31's world of two ranks may take (its card run took 123 s).
+SERVICE_RANKS_S = 600.0
+# The two-rank service B's entries (phase 31): rank 0's last call of each
+# kernel variant of its path, each held against its twin; their launches
+# that rank's in the phase.
+SERVICE_RANKS = {
+    ("match_topk2", "quantized"): "topk2_match (two-rank service B chunk, rank 0 of 2)",
+    ("linearize_reduce_radial3_t", "held"): "linearize_reduce_radial3_t (two-rank service B, "
+                                            "held, rank 0 of 2)",
+    ("linearize_reduce_radial3_t", "refine"): "linearize_reduce_radial3_t (two-rank service B, "
+                                              "refine, rank 0 of 2)",
+    ("schur_mv_t", ""): "schur_mv_t (two-rank service B, rank 0 of 2)",
+    ("schur_fwd_t", "D=6"): "schur_fwd_t (two-rank service B, D=6, rank 0 of 2)",
+    ("schur_fwd_t", "D=7"): "schur_fwd_t (two-rank service B, D=7, rank 0 of 2)",
+    ("schur_bwd_t", "D=6"): "schur_bwd_t (two-rank service B, D=6, rank 0 of 2)",
+    ("schur_bwd_t", "D=7"): "schur_bwd_t (two-rank service B, D=7, rank 0 of 2)"}
 # The reference's own run_sparse over the medium rung on a CPU
 # (scripts/selfcal_rung.py --views 200 --engine global --held, and --engine
 # stellar --focal-start 1.0; PERF.md section 6), recorded before any card
@@ -881,7 +922,7 @@ def _flops(name: str, a: tuple, k: dict) -> float:
         return 0.0
     if name == "schur_mv_t":  # W^T v and W z (36 each), Hpp^-1 y per rank, Hcc v per camera
         return 72 * a[0].shape[1] + 15 * a[5] + 78 * a[3].shape[0]
-    if name in ("schur_bwd_t", "schur_fwd_t"):  # one multiply-add per W entry
+    if name in ("schur_bwd_t", "schur_fwd_t", "schur_bwd", "schur_fwd"):  # a multiply-add per W entry
         return 2 * a[0].shape[0] * a[0].shape[1]
     return a[0].numel()  # K6, K7: one add per value
 
@@ -908,9 +949,16 @@ def _index_select(a: tuple):
     return lambda: table.index_select(0, ids)
 
 
+def _index_add_rows(a: tuple):
+    """_index_add for the sublane entry points' row-major (O, k) values."""
+    return _index_add((a[0].T,) + tuple(a[1:]))
+
+
 # The PyTorch call that computes a kernel's function, where there is one.
 LIBRARY = {"segsum_table_t": (_index_add, "index_add_"),
            "segsum_sorted_t": (_index_add, "index_add_"),
+           "segsum_table": (_index_add_rows, "index_add_"),
+           "segsum_sorted": (_index_add_rows, "index_add_"),
            "gather_table": (_index_select, "index_select"),
            "gather_sorted": (_index_select, "index_select")}
 
@@ -1783,6 +1831,29 @@ def phase_new_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> Non
         "segsum_sorted_t", cap_b["segsum_sorted_t", "k=12"], "path B, point ranks, k=12"))
 
 
+def _sublane_call(call):
+    """A captured (k, O)-layout call as its sublane entry point's: the table
+    row-major (O, k), no layout."""
+    a, _ = call
+    return (a[0].T.contiguous(),) + tuple(a[1:]), {}
+
+
+def phase_sublane_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> None:
+    """The reference's sublane entry points (segsum_table, segsum_sorted,
+    schur_fwd, schur_bwd: row-major (O, k) tables) at the shapes paths A
+    and B gave K6, K7, K5 and K4, which they launch; no main path runs
+    them."""
+    print(f"Sublane entry points (row-major tables) at path shapes on {card}")
+    for name, cap, key, label in (
+            ("segsum_table", cap_b, ("segsum_table_t", "k=96"), "path B, cameras, k=96"),
+            ("segsum_sorted", cap_b, ("segsum_sorted_t", "k=12"), "path B, point ranks, k=12"),
+            ("schur_fwd", cap_b, ("schur_fwd_t", "D=9"), "path B, D=9"),
+            ("schur_bwd", cap_b, ("schur_bwd_t", "D=6"), "path B, cameras, D=6")):
+        entries[name].update(_check_kernel(name, _sublane_call(cap[key]), label), launches=0)
+    _check_kernel("schur_fwd", _sublane_call(cap_a["schur_fwd_t", "D=7"]), "path A, D=7")
+    _check_kernel("schur_bwd", _sublane_call(cap_a["schur_bwd_t", "D=7"]), "path A, one group, D=7")
+
+
 # Path A starts from the true focal and holds fx to 1%.  On this sandbox's
 # CPU the reference's own run_sparse at 60 views of this rung, one group,
 # ended at fx -0.86%, fy -0.94% from a focal 2% off and from the truth alike
@@ -1824,9 +1895,10 @@ def _service_common(out: dict, label: str, card: str) -> None:
           f"first /event frame {json.dumps(out['sse'][0])}")
 
 
-def phase_service_a(card: str) -> list:
+def phase_service_a(card: str) -> tuple:
     """Service A: the reference service's whole user flow on the 20-view
-    orbit.  Returns the uploaded files for the CLI phase."""
+    orbit.  Returns the uploaded files, the truth and the config, for the
+    CLI phase and phase 31."""
     import tempfile
     from pathlib import Path
 
@@ -1860,11 +1932,32 @@ def phase_service_a(card: str) -> list:
         if n_fin < DENSE_MIN_POINTS or n_fin != len(pts) or faces <= MESH_MIN_FACES:
             raise AssertionError(f"service A: dense {len(pts)} points ({n_fin} finite), "
                                  f"mesh {faces} faces")
-    return files
+    return files, gt, cfg
 
 
-def phase_service_b(card: str) -> None:
-    """Service B: the 200-view rung as a user's EXIF+GPS photographs."""
+def _check_service_b(q: dict, geo, gt, label: str) -> None:
+    """Service B's bars on a workspace's scene quality and geo block."""
+    fx_rel = q["intr"][0] / float(gt["intr"][0]) - 1.0
+    print(f"  {label}: registered {q['registered']}/{q['views']}, ATE {q['ate']:.5f}, points "
+          f"{q['points']}, refined fx {q['intr'][0]:.3f} ({fx_rel:+.5f}), geo {json.dumps(geo)}")
+    if (q["registered"] < 190 or not q["ate"] <= 0.10 or q["points"] <= 1000
+            or not q["finite"] or not abs(fx_rel) <= FX_TOL):
+        raise AssertionError(f"{label} quality: {q}, fx {fx_rel:+.5f}")
+    if geo is None or geo["n_gps"] < 190 or not geo["rms_m"] < 1.0:
+        raise AssertionError(f"{label} geo-registration: {geo}")
+
+
+def _putative(ws):
+    import numpy as np
+
+    with np.load(ws / "matches_putative.npz") as d:
+        return d["idx"], d["valid"]
+
+
+def phase_service_b(card: str) -> dict:
+    """Service B: the 200-view rung as a user's EXIF+GPS photographs.
+    Returns its registered views, points and putative match table for
+    phase 31."""
     import tempfile
     from pathlib import Path
 
@@ -1885,25 +1978,118 @@ def phase_service_b(card: str) -> None:
         _service_common(out, "service B", card)
         q = sr.scene_quality(ws, gt)
         report = json.loads((ws / "report.json").read_text())
-    geo = report["geo"]
-    fx_rel = q["intr"][0] / float(gt["intr"][0]) - 1.0
-    print(f"  registered {q['registered']}/{q['views']}, ATE {q['ate']:.5f}, points "
-          f"{q['points']}, refined fx {q['intr'][0]:.3f} ({fx_rel:+.5f}), geo {json.dumps(geo)}")
+        matches = _putative(ws)
+    _check_service_b(q, report["geo"], gt, "service B")
     print(f"  recon_phase_s {json.dumps(report['recon_phase_s'])}, sparse elapsed_s "
-          f"{report['elapsed_s']}, device {report['device']}")
+          f"{report['elapsed_s']}, device {report['device']}, BA solves "
+          f"{json.dumps(report['ba_solves'])}")
     print(f"  launches {json.dumps(counts)}; kernel calls by variant "
           f"{json.dumps(_kc().named(calls))}; "
           f"_lm_kernels solves {len(solves)}")
-    if (q["registered"] < 190 or not q["ate"] <= 0.10 or q["points"] <= 1000
-            or not q["finite"] or not abs(fx_rel) <= FX_TOL):
-        raise AssertionError(f"service B quality: {q}, fx {fx_rel:+.5f}")
-    if geo is None or geo["n_gps"] < 190 or not geo["rms_m"] < 1.0:
-        raise AssertionError(f"service B geo-registration: {geo}")
     need = [("linearize_reduce_radial3_t", "held"), ("linearize_reduce_radial3_t", "refine"),
             ("schur_fwd_t", "D=6"), ("schur_fwd_t", "D=7")]
     if any(calls[k] == 0 for k in need) or not counts["schur_mv_t"] or not counts["schur_bwd_t"]:
         raise AssertionError(f"service B: a kernel of the path did not launch: {counts}, "
                              f"{dict(calls)}")
+    return {"registered": q["registered"], "points": q["points"], "matches": matches}
+
+
+def phase_service_ranks(card: str, ref_b: dict, files_a: list, gt_a: dict, cfg_a,
+                        entries: dict) -> None:
+    """Phase 31 (see the docstring)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpusfm_torch.io import ply
+    from tpusfm_torch.parallel import mesh as mesh_mod
+    from tpusfm_torch.tools import service_rung as sr
+
+    t0 = time.time()
+    files_b, gt_b, cfg_b = sr.rung_b_inputs(200)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        root = Path(tmp)
+        spec = {"device": "cuda:0", "root": tmp, "hold": list(SERVICE_RANKS),
+                "rungs": [("service_b", files_b, cfg_b, ("preprocessing", "sparse")),
+                          ("service_a6", files_a[:6], cfg_a,
+                           ("preprocessing", "sparse", "dense", "mesh"))]}
+        print(f"phase 31 ({card}): the service on 2 ranks sharing cuda:0, joined by gloo: "
+              f"service B, then service A's first 6 frames (inputs in {time.time() - t0:.1f} s)")
+        t1 = time.time()
+        results = mesh_mod.run_ranks(sr.ranks_main, 2, backend="gloo",
+                                     init_method=f"file://{tmp}/init", args=(spec,),
+                                     timeout_s=SERVICE_RANKS_S)
+        t_world = time.time() - t1
+        q = sr.scene_quality(root / "service_b", gt_b)
+        report = json.loads((root / "service_b" / "report.json").read_text())
+        idx, valid = _putative(root / "service_b")
+        q_a = sr.scene_quality(root / "service_a6", {"centers": gt_a["centers"][:6]})
+        pts, _ = ply.read_ply_points(root / "service_a6" / "dense.ply")
+        faces = _mesh_faces(root / "service_a6" / "mesh.ply")
+    out_b, out_a = results[0]["service_b"], results[0]["service_a6"]
+    _service_common(out_b, "two-rank service B", card)
+    for r in results:
+        b = r["service_b"]
+        print(f"  rank {r['rank']} service B: wall {b['wall_s']:.1f} s, launches "
+              f"{json.dumps(b['launches'])}, calls {json.dumps(b['calls'])}")
+    print(f"  stage seconds by rank: service B {json.dumps(out_b['rank_stage_s'])}, service A "
+          f"(6 frames) {json.dumps(out_a['rank_stage_s'])}")
+    _check_service_b(q, report["geo"], gt_b, "two-rank service B")
+    sharded = {k: v for k, v in report["ba_solves"].items() if "sharded" in k}
+    print(f"  report: sparse elapsed_s {report['elapsed_s']}, recon_phase_s "
+          f"{json.dumps(report['recon_phase_s'])}, sharded BAs {json.dumps(sharded)}; against "
+          f"one device (phase 23): registered {ref_b['registered']}, points {ref_b['points']}")
+    if q["registered"] < ref_b["registered"] - 2 \
+            or abs(q["points"] - ref_b["points"]) > 0.1 * ref_b["points"]:
+        raise AssertionError(f"two-rank service B: {q['registered']} views, {q['points']} points "
+                             f"against one device's {ref_b['registered']}, {ref_b['points']}")
+    if not (np.array_equal(idx, ref_b["matches"][0]) and np.array_equal(valid, ref_b["matches"][1])):
+        raise AssertionError("two-rank service B: the putative match table differs from one "
+                             "device's")
+    if not sharded:
+        raise AssertionError(f"two-rank service B: no sharded BA in {report['ba_solves']}")
+    need = ("linearize_reduce_radial3_t refine", "schur_fwd_t D=6", "schur_fwd_t D=7")
+    for r in results:
+        b = r["service_b"]
+        _only_bf16_k1(b["launches"], f"two-rank service B, rank {r['rank']}")
+        if any(not b["calls"].get(n) for n in need) or not b["launches"]["schur_bwd_t"] \
+                or r["jax_imported"]:
+            raise AssertionError(f"two-rank service B, rank {r['rank']}: K2 refine, K5 at D = 6 "
+                                 f"and 7 or K4 did not launch, or JAX was imported: {b['calls']}")
+    n_fin = int(np.isfinite(pts).all(axis=1).sum())
+    print(f"  two-rank service A (6 frames): registered {q_a['registered']}/6, ATE "
+          f"{q_a['ate']:.5f}, stage seconds {json.dumps(out_a['stage_s'])}, dense.ply {len(pts)} "
+          f"points ({n_fin} finite), mesh.ply {faces} faces")
+    if q_a["registered"] < 5 or not q_a["ate"] <= 0.05 or n_fin < DENSE_MIN_POINTS \
+            or n_fin != len(pts) or faces <= MESH_MIN_FACES:
+        raise AssertionError(f"two-rank service A: {q_a}, dense {len(pts)} points ({n_fin} "
+                             f"finite), mesh {faces} faces")
+    _check_service_kernels(card, out_b["held"], out_b["launches"], entries)
+    print(f"  phase 31: world {t_world:.1f} s, wall {time.time() - t0:.1f} s")
+
+
+def _check_service_kernels(card: str, held: dict, launches: dict, entries: dict) -> None:
+    """Phase 31's kernels at rank 0's last call of each variant of the
+    two-rank service B (its share of the tables), held against their twins
+    as phase 8 holds them."""
+    from tpusfm_torch.tools import parallel_rung as pr
+
+    missing = [k for k in SERVICE_RANKS if k not in held]
+    if missing:
+        raise AssertionError(f"two-rank service B: rank 0 made no call of {missing}")
+    print(f"Two-rank service B kernels at rank 0's last calls on {card}")
+    for (name, variant), label in SERVICE_RANKS.items():
+        call = pr.to_device(held[name, variant], "cuda:0")
+        where = f"two-rank service B, rank 0, {variant}".rstrip(", ")
+        if name == "match_topk2":
+            res = _check_k1_captured({(name, variant): call}, card,
+                                     run="two-rank service B, rank 0's")
+            res["launches"] = launches["topk2_match"]
+        else:
+            w = {"held": (2,), "refine": (2, 4)}.get(variant, ())
+            res = {**_check_kernel(name, call, where, w_outputs=w), "launches": launches[name]}
+        entries[label].update(res)
 
 
 def phase_cli(card: str, files: list) -> None:
@@ -1945,7 +2131,9 @@ def main() -> int:
     entries[K1_200] = {**entries["topk2_match"], "name": K1_200, "launches": None}
     entries[POD["topk2_match"]] = {**entries["topk2_match"], "name": POD["topk2_match"],
                                    "launches": None}
-    for name, (src, line) in {
+    k1_service = SERVICE_RANKS["match_topk2", "quantized"]
+    entries[k1_service] = {**entries["topk2_match"], "name": k1_service, "launches": None}
+    sources = {
             "linearize_reduce_radial3_t": ("ba_linearize.cu", 1439),
             "schur_mv_t": ("ba_schur.cu", 2023),
             "schur_bwd_t": ("ba_schur.cu", 1891),
@@ -1967,7 +2155,15 @@ def main() -> int:
             STELLAR["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
             STELLAR["schur_fwd_t"]: ("ba_schur.cu", 1796),
             STELLAR["schur_bwd_t"]: ("ba_schur.cu", 1891),
-            K5_SHARDED: ("ba_schur.cu", 1796)}.items():
+            K5_SHARDED: ("ba_schur.cu", 1796),
+            # The sublane entry points: K6, K7, K5, K4 on row-major tables.
+            "segsum_table": ("ba_segsum.cu", 128),
+            "segsum_sorted": ("ba_segsum.cu", 224),
+            "schur_fwd": ("ba_schur.cu", 851),
+            "schur_bwd": ("ba_schur.cu", 964)}
+    sources.update({label: sources[name] for (name, _), label in SERVICE_RANKS.items()
+                    if name in sources})
+    for name, (src, line) in sources.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
                          "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1984,6 +2180,7 @@ def main() -> int:
     del bench
     cap_b = phase_brown(card, entries)
     phase_new_kernels(card, cap_a, cap_b, entries)
+    phase_sublane_kernels(card, cap_a, cap_b, entries)
     phase_gather_kernels(card, cap_g, cap_b, entries)
     del cap_a, cap_b, cap_g, captured
     phase_preemptive()
@@ -1998,11 +2195,12 @@ def main() -> int:
     phase_calibration(card)
     print(f"engine and calibration phases wall {time.time() - t_eng:.1f} s")
     t_svc = time.time()
-    files = phase_service_a(card)
-    phase_service_b(card)
+    files, gt_a, cfg_a = phase_service_a(card)
+    ref_b = phase_service_b(card)
     phase_cli(card, files)
     print(f"service and CLI phases wall {time.time() - t_svc:.1f} s")
     phase_parallel(card, ref200, scene20, images20, gt20, dense_out, entries)
+    phase_service_ranks(card, ref_b, files, gt_a, cfg_a, entries)
     import torch
 
     print(f"chip_smoke total wall time {time.time() - t_start:.1f} s")

@@ -760,6 +760,38 @@ def test_k4_read_paths_give_the_same_bits(engine_tables, shape, d, w_dtype):
                       ot.schur_bwd_t_reference(W, ids, ranks, z.double(), n), f"K4 D={d} n={n}")
 
 
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [6, 7, 9])
+def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
+    """segsum_table, segsum_sorted, schur_fwd and schur_bwd on row-major
+    (O, k) tables at the 200-view shape: one launch of K6, K7, K5 and K4
+    each, within 4x the float32 twin's error against the float64 twin; K4's
+    row-major permuted read and K7's row-major read give the bits of their
+    lane-major reads."""
+    t = engine_tables["200-view"]
+    cam, ranks, C, P = t["args"][3], t["args"][5], t["C"], t["P"]
+    gen = torch.Generator(device="cuda").manual_seed(20 + d)
+    w = torch.randn((cam.shape[0], 3 * d), generator=gen, device="cuda").to(w_dtype)
+    vals = torch.randn((cam.shape[0], d), generator=gen, device="cuda")
+    v = torch.randn((C, d), generator=gen, device="cuda")
+    z = torch.randn((P, 3), generator=gen, device="cuda")
+    calls = {"segsum_table": ((vals, cam, C), "segsum_table_t"),
+             "segsum_sorted": ((vals, ranks, P), "segsum_sorted_t"),
+             "schur_fwd": ((w, cam, ranks, v, P), "schur_fwd_t"),
+             "schur_bwd": ((w, cam, ranks, z, C), "schur_bwd_t")}
+    for name, (a, kernel) in calls.items():
+        before = dict(ot.LAUNCHES)
+        got = getattr(ot, name)(*a)
+        torch.cuda.synchronize()
+        assert ot.LAUNCHES == {**before, kernel: before[kernel] + 1}, name
+        twin = getattr(ot, name + "_reference")
+        _oracle_close(got, twin(*a), twin(*_f64(a)), f"{name} D={d}")
+    lane = ot.schur_bwd_t(w.T.contiguous(), cam, ranks, z, C)
+    assert torch.equal(ot.schur_bwd(w, cam, ranks, z, C), lane)
+    lane = ot.segsum_sorted_t(vals.T.contiguous(), ranks, P)
+    assert torch.equal(ot.segsum_sorted(vals, ranks, P), lane)
+
+
 def test_k2_and_k4_launch_counts_at_path_a(engine_tables):
     """At path A's shape K4 is one kernel launch per call (the chunk sums
     and the finish in one), K2 held two and K2 refine three."""

@@ -446,3 +446,95 @@ def test_unreduced_tables_reduced_by_k6_k7_equal_the_reduced_mode(tables, mode):
         np.testing.assert_allclose(red[3][:, full77].numpy(), grpred[:, :49].numpy(), **close)
         np.testing.assert_allclose(red[3][:, 28:].numpy(), grpred[:, 49:].numpy(), **close)
         assert torch.equal(red[4], vals[4])
+
+
+# The reference's sublane entry points (row-major (O, k) tables): the port's
+# wrappers launch K6, K7, K5 and K4 on the (k, O) view; on the CPU they
+# take the twins.  Same tolerance as above (float32 sums in other orders).
+
+def _masked_ids(ids, n, seed):
+    """ids with about 5% set to -1 and 5% set past n (both dropped)."""
+    r = np.random.default_rng(seed)
+    ids = ids.copy()
+    ids[r.random(len(ids)) < 0.05] = -1
+    ids[r.random(len(ids)) < 0.05] = n + 3
+    assert (ids < 0).any() and (ids >= n).any()
+    return ids
+
+
+@pytest.mark.parametrize("d", [6, 7, 9])
+def test_sublane_segsum_table_matches_reference(tables, d):
+    n = tables["C"]
+    idx = _masked_ids(tables["obs_cam"], n, 20 + d)
+    vals = np.random.default_rng(d).normal(size=(len(idx), d)).astype(np.float32)
+    want = jot.segsum_table(jnp.asarray(vals), jnp.asarray(idx), n, interpret=True)
+    got = tot.segsum_table(torch.as_tensor(vals), torch.as_tensor(idx), n)
+    assert tuple(got.shape) == (n, d)
+    _close(got, want, f"segsum_table D={d}")
+
+
+@pytest.mark.parametrize("d", [6, 7, 9])
+def test_sublane_segsum_sorted_matches_reference(tables, d):
+    """The table's ranks (a gap of 200 inside the reference's 512-row
+    windows, invalid rows at 2^30) with p cut below the largest rank, so
+    rows at ranks >= p are dropped."""
+    ranks, p = tables["ranks"], tables["P"] - 3
+    assert (ranks[ranks < 2 ** 30] >= p).any()
+    vals = np.random.default_rng(30 + d).normal(size=(len(ranks), d)).astype(np.float32)
+    want = jot.segsum_sorted(jnp.asarray(vals), jnp.asarray(ranks), p, interpret=True)
+    got = tot.segsum_sorted(torch.as_tensor(vals), torch.as_tensor(ranks), p)
+    assert tuple(got.shape) == (p, d)
+    _close(got, want, f"segsum_sorted D={d}")
+
+
+# f32 at every D, bf16 W (the BA's w_dtype) at D = 9.
+_SUBLANE_W = [pytest.param(d, b, id=f"{d}-{'bf16' if b else 'f32'}")
+              for d, b in ((6, False), (7, False), (9, False), (9, True))]
+
+
+@pytest.mark.parametrize("d,w_bf16", _SUBLANE_W)
+def test_sublane_schur_fwd_matches_reference_every_lane(tables, d, w_bf16):
+    """The reference's sublane schur_fwd sums every lane of W (its kernels
+    loop over all D rows), so the port's wrapper, whose K5 sums every lane,
+    equals it at D = 7 and 9 as at 6; the reference's own schur_fwd_t drops
+    the lanes past the sixth on the same inputs (ROADMAP queue 3)."""
+    s = _schur_inputs(tables, d=d, seed=40 + d)
+    ranks = _dense_ranks(tables)
+    P = int(ranks[ranks < 2 ** 30].max()) + 1
+    cam = _masked_ids(tables["obs_cam"], tables["C"], 50 + d)
+    vtab = np.random.default_rng(60 + d).normal(size=(tables["C"], d)).astype(np.float32)
+    w = torch.as_tensor(s["wT"].T.copy())
+    if w_bf16:
+        w = w.to(torch.bfloat16)
+    jw = jnp.asarray(w.float().numpy())  # bf16 -> f32 -> bf16 is exact
+    jw = jw.astype(jnp.bfloat16) if w_bf16 else jw
+    jargs = (jnp.asarray(cam), jnp.asarray(ranks), jnp.asarray(vtab), P)
+    want = np.asarray(jot.schur_fwd(jw, *jargs, interpret=True))
+    got = tot.schur_fwd(w, torch.as_tensor(cam), torch.as_tensor(ranks), torch.as_tensor(vtab), P)
+    assert tuple(got.shape) == (P, 3)
+    _close(got, want, f"schur_fwd D={d}")
+    lane_t = np.asarray(jot.schur_fwd_t(jw.T, *jargs, interpret=True))
+    if d > 6:
+        assert np.abs(lane_t - want).max() > 1.0  # the _t kernel's dropped lanes
+    else:
+        _close(lane_t, want, "schur_fwd_t D=6")
+
+
+@pytest.mark.parametrize("d,w_bf16", _SUBLANE_W)
+def test_sublane_schur_bwd_matches_reference(tables, d, w_bf16):
+    s = _schur_inputs(tables, d=d, seed=70 + d)
+    ranks = _dense_ranks(tables)
+    Pz = int(ranks[ranks < 2 ** 30].max()) + 1
+    n = tables["C"]
+    cam = _masked_ids(tables["obs_cam"], n, 80 + d)
+    ztab = np.random.default_rng(90 + d).normal(size=(Pz, 3)).astype(np.float32)
+    w = torch.as_tensor(s["wT"].T.copy())
+    if w_bf16:
+        w = w.to(torch.bfloat16)
+    jw = jnp.asarray(w.float().numpy())
+    jw = jw.astype(jnp.bfloat16) if w_bf16 else jw
+    want = jot.schur_bwd(jw, jnp.asarray(cam), jnp.asarray(ranks), jnp.asarray(ztab), n,
+                         interpret=True)
+    got = tot.schur_bwd(w, torch.as_tensor(cam), torch.as_tensor(ranks), torch.as_tensor(ztab), n)
+    assert tuple(got.shape) == (n, d)
+    _close(got, want, f"schur_bwd D={d}")

@@ -238,6 +238,25 @@ def test_get_mesh_outside_a_group_raises():
     assert tmesh.initialize_distributed(None, 1, 0) is False  # one process: nothing to do
 
 
+def test_make_mesh_without_a_device_takes_the_card(tmp_path):
+    """With no device= a mesh is made on the rank's card: where no CUDA
+    device is present that raises (as resolve_device does), and the CPU
+    serves only when asked for."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tmesh.make_mesh()
+        assert tmesh.make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+        tmesh._MESHES.clear()
+
+
 def test_pad_to_multiple_matches_reference():
     from tpusfm.parallel import mesh as jmesh
 

@@ -121,3 +121,47 @@ def test_bilinear_sample_level_ch_reference_form(lims):
                                           torch.as_tensor(y), torch.as_tensor(x), **kw_t)
     assert got.shape == (5, 6, C)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_core_package_imports_its_submodules():
+    """`import tpusfm_torch.core` binds the submodules the reference's core
+    package imports (tpusfm/core/__init__.py), in a fresh process where
+    nothing else imported them."""
+    import ast
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import tpusfm.core as jcore
+
+    # The names the reference's __init__ imports (its module's attributes
+    # also hold whatever submodules other tests imported in this process).
+    tree = ast.parse(Path(jcore.__file__).read_text())
+    names = sorted(a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+                   and node.level == 1 and not node.module for a in node.names)
+    assert names == ["camera", "epipolar", "homography", "lie", "triangulate"]
+    code = ("import sys, types, tpusfm_torch.core as c; "
+            f"print(all(isinstance(getattr(c, n, None), types.ModuleType) for n in {names!r}), "
+            "'jax' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=120)
+    assert out.stdout.split() == ["True", "False"], out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module,name,home", [
+    ("pipeline.config", "BAConfig", "ba.bundle_adjust"),
+    ("sfm.stellar", "GlobalConfig", "sfm.global_sfm"),
+    ("sfm.stellar", "rotation_averaging", "sfm.global_sfm"),
+])
+def test_reexported_names_match_reference(module, name, home):
+    """The names the reference's modules import from a sibling are there
+    in the port too, as the same objects; configs have the reference's
+    fields and defaults."""
+    import dataclasses
+    import importlib
+
+    j, t = (importlib.import_module(f"{pkg}.{module}") for pkg in ("tpusfm", "tpusfm_torch"))
+    assert getattr(j, name) is getattr(importlib.import_module(f"tpusfm.{home}"), name)
+    assert getattr(t, name) is getattr(importlib.import_module(f"tpusfm_torch.{home}"), name)
+    if dataclasses.is_dataclass(getattr(j, name)):
+        assert dataclasses.asdict(getattr(t, name)()) == dataclasses.asdict(getattr(j, name)())

@@ -14,9 +14,13 @@ process per device, started by torchrun::
 
 Each rank joins the group from torchrun's environment (NCCL on cards,
 gloo on the CPU) and takes card LOCAL_RANK; rank 0 prints and writes the
-workspace.  ``serve`` takes one device.  Not ported
-yet, raising ``NotImplementedError``: ``bench`` (the port's benchmark is
-ROADMAP queue 1 item 1).
+workspace.  ``serve --devices N`` runs the same way: rank 0 binds the
+HTTP server, the other ranks follow its stage commands::
+
+  torchrun --nproc-per-node N -m tpusfm_torch.cli serve --workspace ws --devices N
+
+Not ported yet, raising ``NotImplementedError``: ``bench`` (the port's
+benchmark is ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -138,7 +142,14 @@ def cmd_serve(args):
     from .service.http_server import serve
 
     cfg = _make_cfg(args)
-    serve(args.workspace, cfg, host=args.host, port=args.port, device=args.device)
+    device, _, own_group = _join_ranks(args, cfg)
+    try:
+        serve(args.workspace, cfg, host=args.host, port=args.port, device=device)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def cmd_export_colmap(args):

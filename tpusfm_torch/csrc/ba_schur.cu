@@ -292,11 +292,11 @@ schur_camera_finish_kernel(const float* __restrict__ part, const int* __restrict
 }
 
 // How K4 reaches the W column and rank of the i-th row of a segment order:
-// through the permutation (column seg_perm[i] of the lane-major table and
+// through the permutation (column seg_perm[i] of the table and
 // ranks[seg_perm[i]]), or in order (column i and ranks[i] of a table and a
-// rank column already in segment order), lane-major (3D, O) or row-major
-// (O, 3D).
-enum WRead { kPermuted = 0, kOrderedLane = 1, kOrderedRow = 2 };
+// rank column already in segment order), each from a lane-major (3D, O) or
+// a row-major (O, 3D) table.
+enum WRead { kPermuted = 0, kOrderedLane = 1, kOrderedRow = 2, kPermutedRow = 3 };
 
 // K4's rows in flight per thread.
 constexpr int kBwdRowsInFlight = 2;
@@ -314,6 +314,8 @@ schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
                  int O, int chunk_rows, float* __restrict__ part, int* __restrict__ arrivals,
                  float* __restrict__ out) {
   constexpr int U = kBwdRowsInFlight;
+  constexpr bool kPerm = kRead == kPermuted || kRead == kPermutedRow;
+  constexpr bool kRowMajor = kRead == kOrderedRow || kRead == kPermutedRow;
   __shared__ float sums[D];
   zero_empty_segment<D>(chunk_start, n, out);
   ChunkRows ch;
@@ -327,13 +329,12 @@ schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
-      o[u] = i >= ch.end ? -1 : kRead == kPermuted ? __ldg(seg_perm + i) : i;
+      o[u] = i >= ch.end ? -1 : kPerm ? __ldg(seg_perm + i) : i;
       r[u] = o[u] < 0 ? -1 : __ldg(ranks + o[u]);
 #pragma unroll
       for (int k = 0; k < 3 * D; ++k)
         w[u][k] = o[u] < 0 ? 0.f
-                  : load_w(wT, kRead == kOrderedRow ? (size_t)o[u] * (3 * D) + k
-                                                    : (size_t)k * O + o[u]);
+                  : load_w(wT, kRowMajor ? (size_t)o[u] * (3 * D) + k : (size_t)k * O + o[u]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -363,8 +364,12 @@ int launch_bwd_d(int read, const void* wT, const int* ranks, const float* ztab, 
     schur_bwd_kernel<WT, D, kOrderedLane><<<n_chunks, kThreads, 0, stream>>>(
         w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
         out);
-  else
+  else if (read == kOrderedRow)
     schur_bwd_kernel<WT, D, kOrderedRow><<<n_chunks, kThreads, 0, stream>>>(
+        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
+        out);
+  else
+    schur_bwd_kernel<WT, D, kPermutedRow><<<n_chunks, kThreads, 0, stream>>>(
         w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
         out);
   return (int)cudaGetLastError();
@@ -466,10 +471,11 @@ extern "C" int tpusfm_ba_schur_mv(int device, const void* wT, int w_bf16, const 
 }
 
 // K4.  wT (3D, O) bf16 or f32 with 1 <= D <= 9 and ranks (O) int32 into
-// ztab (Pz, 3) f32, read as `read` says (WRead): kPermuted, wT lane-major
-// and ranks in table order, reached through seg_perm; kOrderedLane and
-// kOrderedRow, wT lane-major (3D, O) or row-major (O, 3D) and ranks both
-// already in segment order (column i is row seg_perm[i]).  seg_perm (O),
+// ztab (Pz, 3) f32, read as `read` says (WRead): kPermuted and
+// kPermutedRow, wT lane-major (3D, O) or row-major (O, 3D) and ranks in
+// table order, reached through seg_perm; kOrderedLane and kOrderedRow, wT
+// lane-major or row-major and ranks both already in segment order (column
+// i is row seg_perm[i]).  seg_perm (O),
 // seg_start and chunk_start (n + 1) and arrivals (n, zero, left zero) from
 // ObsLayout, at most n_chunks chunks of chunk_rows rows; part (n_chunks, D)
 // scratch.  Writes out (n, D) on device `device` and returns the CUDA error
@@ -481,7 +487,7 @@ extern "C" int tpusfm_ba_schur_bwd(int device, const void* wT, int w_bf16, int r
                                    int n_chunks, int chunk_rows, float* part, float* out,
                                    cudaStream_t stream) {
   if (n <= 0 || O <= 0 || Pz < 0 || n_chunks < n || chunk_rows <= 0 || D < 1 || D > kMaxD ||
-      read < kPermuted || read > kOrderedRow)
+      read < kPermuted || read > kPermutedRow)
     return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;

@@ -5,8 +5,9 @@
 // out (n, k) = the sum of the table's rows by an unsorted id (camera or
 // intrinsic group), ids outside [0, n) dropped.  K7 replaces
 // `_segsum_sorted_t_kernel` (wrapper `segsum_sorted_t`, :1749): out (p, k)
-// = the sum of the columns of a lane-major (k, O) table by a non-decreasing
-// rank, rows with rank >= p dropped.  The BA kernel path's unfused
+// = the sum of the columns of a (k, O) table, lane-major or the view of a
+// row-major (O, k) table (the reference's sublane `segsum_sorted`), by a
+// non-decreasing rank, rows with rank >= p dropped.  The BA kernel path's unfused
 // linearization (camera models other than RADIAL3, or more than 2048
 // cameras or groups) reduces its per-observation Jacobian products through
 // them: k = 36 + 6 (+ 6E) per camera, E*E + E per group, 12 per point rank;
@@ -132,19 +133,24 @@ transpose_tile_kernel(const float* __restrict__ in, int k, int O, float* __restr
   }
 }
 
-// K7: one thread per (value, rank); neighbouring threads take neighbouring
-// ranks of one value, whose rows are neighbours in the sorted table.
+// K7: one thread per (value, rank).  Lane-major (k, O): neighbouring
+// threads take neighbouring ranks of one value, whose rows are neighbours in
+// the sorted table.  Row-major (O, k): neighbouring threads take neighbouring
+// values of one rank, neighbours in each of its rows.  Each sum runs over the
+// rank's rows in order, so the two layouts give the same bits.
+template <bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
-segsum_sorted_kernel(const float* __restrict__ valsT, int k, int O,
+segsum_sorted_kernel(const float* __restrict__ vals, int k, int O,
                      const int* __restrict__ rank_start, int P, float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= (long long)P * k) return;
-  const int v = (int)(i / P);
-  const int r = (int)(i - (long long)v * P);
-  const float* row = valsT + (size_t)v * O;
+  const int v = kRowMajor ? (int)(i % k) : (int)(i / P);
+  const int r = kRowMajor ? (int)(i / k) : (int)(i - (long long)v * P);
+  const float* col = kRowMajor ? vals + v : vals + (size_t)v * O;
+  const size_t step = kRowMajor ? (size_t)k : 1;
   float acc = 0.f;
   const int end = rank_start[r + 1];
-  for (int o = rank_start[r]; o < end; ++o) acc += row[o];
+  for (int o = rank_start[r]; o < end; ++o) acc += col[(size_t)o * step];
   out[(size_t)r * k + v] = acc;
 }
 
@@ -187,13 +193,19 @@ extern "C" int tpusfm_ba_segsum_table(const float* vals, int lane_major, int k, 
   return launch_chunk_finish(part, chunk_start, n, k, out, stream);
 }
 
-// K7.  valsT (k, O) f32; rank_start (P + 1) from ObsLayout over the sorted
-// ranks.  Writes out (P, k) and returns the CUDA error code of the launch.
-extern "C" int tpusfm_ba_segsum_sorted(const float* valsT, int k, int O, const int* rank_start,
-                                       int P, float* out, cudaStream_t stream) {
+// K7.  vals f32: lane-major (k, O) when row_major = 0, row-major (O, k)
+// when 1, both read in place; rank_start (P + 1) from ObsLayout over the
+// sorted ranks.  Writes out (P, k) and returns the CUDA error code of the
+// launch.
+extern "C" int tpusfm_ba_segsum_sorted(const float* vals, int row_major, int k, int O,
+                                       const int* rank_start, int P, float* out,
+                                       cudaStream_t stream) {
   if (k <= 0 || O <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)P * k;
-  segsum_sorted_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      valsT, k, O, rank_start, P, out);
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  if (row_major)
+    segsum_sorted_kernel<true><<<blocks, kThreads, 0, stream>>>(vals, k, O, rank_start, P, out);
+  else
+    segsum_sorted_kernel<false><<<blocks, kThreads, 0, stream>>>(vals, k, O, rank_start, P, out);
   return (int)cudaGetLastError();
 }

@@ -104,7 +104,7 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_segsum_table.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp,
                                                vp, vp]
         lib.tpusfm_ba_segsum_table.restype = ci
-        lib.tpusfm_ba_segsum_sorted.argtypes = [vp, ci, ci, vp, ci, vp, vp]
+        lib.tpusfm_ba_segsum_sorted.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp]
         lib.tpusfm_ba_segsum_sorted.restype = ci
         lib.tpusfm_ba_linearize_unreduced.argtypes = ([vp] * 9 + [ci] * 4 + [ctypes.c_float, ci]
                                                       + [vp] * 6)

@@ -23,7 +23,10 @@ for a single-device solve, and of its ops-layer entry points:
 - ``gather_table`` (K8) and ``gather_sorted`` (K9): table[idx] by unsorted
   id and by sorted rank, a zero row for ids outside the table;
 - ``linearize_radial3_t`` (K2's unreduced mode) and its sublane-layout twin
-  ``linearize_radial3``: K2's per-observation values, not reduced.
+  ``linearize_radial3``: K2's per-observation values, not reduced;
+- ``segsum_table``, ``segsum_sorted``, ``schur_fwd`` and ``schur_bwd``: the
+  reference's sublane-layout entry points of K6, K7, K5 and K4, on
+  row-major (O, k) tables.
 
 Each wrapper keeps the reference's name, argument order and return
 contract.  For CPU tensors it returns its twin ``<name>_reference``; for
@@ -169,6 +172,14 @@ class ObsLayout:
         return -(-self.seg_perm.shape[0] // CHUNK_ROWS) + self.seg_start.shape[0] - 1
 
 
+def _rank_ranges(ranks: torch.Tensor, p: int) -> torch.Tensor:
+    """rank_start (p + 1,) int32 of a rank-sorted column: rows
+    [rank_start[r], rank_start[r + 1]) hold rank r."""
+    ranks = ranks.to(torch.int32).contiguous()
+    q = torch.arange(p + 1, dtype=torch.int32, device=ranks.device)
+    return torch.searchsorted(ranks, q).to(torch.int32)
+
+
 def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
                p: int | None = None) -> ObsLayout:
     """The layout of a table: the rows of each of the n segments of
@@ -185,8 +196,7 @@ def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
         ranks = ranks.to(torch.int32).contiguous()
         seg_ranks = ranks[perm]
         if p is not None:
-            qr = torch.arange(p + 1, dtype=torch.int32, device=dev)
-            rank_start = torch.searchsorted(ranks, qr).to(torch.int32)
+            rank_start = _rank_ranges(ranks, p)
     seg_start = torch.searchsorted(key_s, q).to(torch.int32)
     n_chunks = (seg_start[1:] - seg_start[:-1] + CHUNK_ROWS - 1) // CHUNK_ROWS
     chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
@@ -424,6 +434,26 @@ def segsum_sorted_t_reference(valsT, idx_sorted, p: int):
     return _segsum_drop(valsT.T, idx_sorted, p)
 
 
+def segsum_table_reference(vals, idx, n: int):
+    """Plain twin of segsum_table: vals (O, D) -> (n, D) sums by id."""
+    return segsum_table_t_reference(vals.T, idx, n)
+
+
+def segsum_sorted_reference(vals, idx_sorted, p: int):
+    """Plain twin of segsum_sorted: vals (O, D) -> (p, D) sums by rank."""
+    return segsum_sorted_t_reference(vals.T, idx_sorted, p)
+
+
+def schur_fwd_reference(w_flat, obs_cam, idx_sorted, vtab, p: int):
+    """Plain twin of schur_fwd: w_flat (O, 3D) -> (p, 3)."""
+    return schur_fwd_t_reference(w_flat.T, obs_cam, idx_sorted, vtab, p)
+
+
+def schur_bwd_reference(w_flat, obs_cam, idx_sorted, ztab, n: int):
+    """Plain twin of schur_bwd: w_flat (O, 3D) -> (n, D)."""
+    return schur_bwd_t_reference(w_flat.T, obs_cam, idx_sorted, ztab, n)
+
+
 def gather_table_reference(table, idx):
     """Plain twin of K8: table (N, D), idx (O,) -> (O, D) = table[idx] in
     the dtype of `table`, a zero row for every id outside [0, N)."""
@@ -505,12 +535,25 @@ def _layout_for(layout, seg_ids, n, ranks, p, need_ranks: bool,
     return layout
 
 
-def _check_w(name: str, wT: torch.Tensor, o: int, dd3: int | None = None):
+def _rank_start_for(layout, ranks, p: int) -> torch.Tensor:
+    """The rank ranges a rank-only kernel (K5, K7) reads: `layout`'s,
+    checked, or, with none, computed alone (no segment sort)."""
+    if layout is None:
+        return _rank_ranges(ranks, p)
+    return _layout_for(layout, ranks, 0, ranks, p, need_ranks=True, need_segs=False).rank_start
+
+
+def _check_w(name: str, wT: torch.Tensor, o: int, dd3: int | None = None,
+             row_major_ok: bool = False):
+    """wT (3D, O) checked; contiguous, or with `row_major_ok` also the
+    (3D, O) view of a contiguous (O, 3D) table (segsum_lane_major)."""
     if wT.dim() != 2 or wT.shape[1] != o or wT.shape[0] % 3 or (dd3 and wT.shape[0] != dd3):
         raise ValueError(f"{name}: wT must be (3D, {o}), got {tuple(wT.shape)}")
     if wT.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: wT must be bfloat16 or float32, got {wT.dtype}")
-    if not wT.is_contiguous():
+    if row_major_ok:
+        segsum_lane_major(wT, name)
+    elif not wT.is_contiguous():
         raise ValueError(f"{name}: wT must be contiguous")
 
 
@@ -694,7 +737,7 @@ def schur_mv_t(wT, obs_cam, idx_sorted, vtab, hinv_rank, p: int, hcc_d=None, *,
 
 
 # How K4 reads W and the ranks (csrc/ba_schur.cu WRead).
-_K4_PERMUTED, _K4_ORDERED_LANE, _K4_ORDERED_ROW = 0, 1, 2
+_K4_PERMUTED, _K4_ORDERED_LANE, _K4_ORDERED_ROW, _K4_PERMUTED_ROW = 0, 1, 2, 3
 
 
 def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | None = None,
@@ -702,7 +745,8 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
     """K4: out (n, D) = sum over observations o with obs_cam_o = n of
     W_o z[rank_o]; wT (3D, O) bf16/f32 with D <= 9, idx_sorted (O,) ranks
     into ztab (Pz, 3).  obs_cam may be any id column (camera or group) whose
-    segment layout `layout` describes.
+    segment layout `layout` describes.  wT is lane-major or the (3D, O)
+    view of a row-major (O, 3D) table (segsum_lane_major), read in place.
 
     `w_seg` (3D, O), optional: the same W in the segment order of `layout`
     (column i is column layout.seg_perm[i] of wT), lane-major or the (3D, O)
@@ -720,7 +764,7 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
         return schur_bwd_t_reference(w_seg, obs_cam[layout.seg_perm.long()], layout.seg_ranks,
                                      ztab, n)
     O = idx_sorted.shape[0]
-    _check_w("schur_bwd_t", wT, O)
+    _check_w("schur_bwd_t", wT, O, row_major_ok=True)
     D = wT.shape[0] // 3
     if not 1 <= D <= MAX_W_ROWS:
         raise ValueError(f"schur_bwd_t: 1 to {MAX_W_ROWS} rows per block (3D <= "
@@ -740,7 +784,11 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
         read = _K4_ORDERED_LANE if segsum_lane_major(w_seg, "schur_bwd_t") else _K4_ORDERED_ROW
         w, rk = w_seg, _i32(lay.seg_ranks)
     else:
-        read = _K4_ORDERED_LANE if lay.in_seg_order else _K4_PERMUTED
+        lane = segsum_lane_major(wT, "schur_bwd_t")
+        if lay.in_seg_order:
+            read = _K4_ORDERED_LANE if lane else _K4_ORDERED_ROW
+        else:
+            read = _K4_PERMUTED if lane else _K4_PERMUTED_ROW
         w, rk = wT, _i32(idx_sorted)
     out = torch.empty((n, D), dtype=torch.float32, device=z.device)
     part = torch.empty((lay.chunk_bound, D), dtype=torch.float32, device=z.device)
@@ -774,7 +822,7 @@ def schur_fwd_t(wT, obs_cam, idx_sorted, vtab, p: int, *, layout: ObsLayout | No
     _check_shape("obs_cam", obs_cam, (O,))
     if min(n, O, p) < 1:
         raise ValueError("schur_fwd_t needs at least one id, observation and rank")
-    lay = _layout_for(layout, obs_cam, n, idx_sorted, p, need_ranks=True, need_segs=False)
+    rank_start = _rank_start_for(layout, idx_sorted, p)
     ids, v = _i32(obs_cam), _f32(vtab)
     y = torch.empty((p, 3), dtype=torch.float32, device=v.device)
     lib = cuda_build.kernels()
@@ -782,7 +830,7 @@ def schur_fwd_t(wT, obs_cam, idx_sorted, vtab, p: int, *, layout: ObsLayout | No
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.tpusfm_ba_schur_fwd(
             wT.data_ptr(), int(wT.dtype == torch.bfloat16), D, ids.data_ptr(), v.data_ptr(), n,
-            lay.rank_start.data_ptr(), p, O, y.data_ptr(), stream)
+            rank_start.data_ptr(), p, O, y.data_ptr(), stream)
     cuda_build.check(lib, err, "schur_fwd_t launch")
     LAUNCHES["schur_fwd_t"] += 1
     return y
@@ -845,7 +893,9 @@ def segsum_table_t(valsT, idx, n: int, *, layout: ObsLayout | None = None):
 def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = None):
     """K7: valsT (k, O), non-decreasing ranks (O,) -> (p, k) float32 sums
     by rank; rows with rank >= p are dropped and ranks need not be dense.
-    `layout` needs only its rank ranges for p."""
+    `layout` needs only its rank ranges for p.  On the card K7 reads in
+    place a contiguous lane-major valsT or the (k, O) view `x.T` of a
+    contiguous (O, k) table x; the two give the same bits."""
     if not _dispatch("segsum_sorted_t", valsT, idx_sorted):
         return segsum_sorted_t_reference(valsT, idx_sorted, p)
     O = idx_sorted.shape[0]
@@ -853,17 +903,64 @@ def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = Non
     if min(p, O) < 1:
         raise ValueError("segsum_sorted_t needs at least one rank and one observation")
     k = valsT.shape[0]
-    lay = _layout_for(layout, idx_sorted, 0, idx_sorted, p, need_ranks=True, need_segs=False)
-    vals = _f32(valsT)
+    rank_start = _rank_start_for(layout, idx_sorted, p)
+    vals = valsT.to(torch.float32)  # keeps the strides of a dense table
+    row_major = not vals.is_contiguous() and vals.stride() == (1, k)
+    if not row_major:
+        vals = vals.contiguous()
     out = torch.empty((p, k), dtype=torch.float32, device=vals.device)
     lib = cuda_build.kernels()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.tpusfm_ba_segsum_sorted(vals.data_ptr(), k, O, lay.rank_start.data_ptr(), p,
-                                          out.data_ptr(), stream)
+        err = lib.tpusfm_ba_segsum_sorted(vals.data_ptr(), int(row_major), k, O,
+                                          rank_start.data_ptr(), p, out.data_ptr(), stream)
     cuda_build.check(lib, err, "segsum_sorted_t launch")
     LAUNCHES["segsum_sorted_t"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The reference's sublane-layout entry points: row-major (O, k) tables, each
+# launched as its kernel on the (k, O) view (obs_table.py:146, 245, 882, 992)
+# ---------------------------------------------------------------------------
+
+def segsum_table(vals, idx, n: int):
+    """K6 on a row-major table: vals (O, D), idx (O,) in any order -> (n, D)
+    float32 sums by id; ids outside [0, n) are dropped.  K6 reads the (D, O)
+    view of the table in place."""
+    if not _dispatch("segsum_table", vals, idx):
+        return segsum_table_reference(vals, idx, n)
+    return segsum_table_t(_f32(vals).T, idx, n)
+
+
+def segsum_sorted(vals, idx_sorted, p: int):
+    """K7 on a row-major table: vals (O, D), non-decreasing ranks (O,) ->
+    (p, D) float32 sums by rank; rows with rank >= p are dropped.  K7 reads
+    the (D, O) view of the table in place."""
+    if not _dispatch("segsum_sorted", vals, idx_sorted):
+        return segsum_sorted_reference(vals, idx_sorted, p)
+    return segsum_sorted_t(_f32(vals).T, idx_sorted, p)
+
+
+def schur_fwd(w_flat, obs_cam, idx_sorted, vtab, p: int):
+    """K5 on a row-major coupling table: w_flat (O, 3D) bf16/f32 (row o is
+    W_o, (D, 3) row-major), obs_cam (O,) ids into vtab (n, D), idx_sorted
+    (O,) sorted ranks -> (p, 3) = sum over the rows of rank r of
+    W_o^T v[obs_cam_o], every one of the D rows counted, as the
+    reference's sublane kernel does.  K5 takes a lane-major copy."""
+    if not _dispatch("schur_fwd", w_flat, obs_cam, idx_sorted, vtab):
+        return schur_fwd_reference(w_flat, obs_cam, idx_sorted, vtab, p)
+    return schur_fwd_t(w_flat.T.contiguous(), obs_cam, idx_sorted, vtab, p)
+
+
+def schur_bwd(w_flat, obs_cam, idx_sorted, ztab, n: int):
+    """K4 on a row-major coupling table: w_flat (O, 3D) bf16/f32,
+    idx_sorted (O,) ranks into ztab (Pz, 3), obs_cam (O,) ids -> (n, D) =
+    sum over the rows of id c of W_o z[rank_o]; ids outside [0, n) are
+    dropped.  K4 reads the table in place through the id order."""
+    if not _dispatch("schur_bwd", w_flat, obs_cam, idx_sorted, ztab):
+        return schur_bwd_reference(w_flat, obs_cam, idx_sorted, ztab, n)
+    return schur_bwd_t(w_flat.contiguous().T, obs_cam, idx_sorted, ztab, n)
 
 
 def _launch_gather(name: str, table, idx) -> torch.Tensor:

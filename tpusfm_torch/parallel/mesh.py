@@ -29,6 +29,7 @@ import datetime
 import os
 import pickle
 import queue as queue_mod
+import time
 import traceback
 
 import numpy as np
@@ -127,8 +128,9 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS, *, backend: str | 
     """The 1-D mesh over the initialised group's `n_devices` ranks (default:
     all; another count raises).  `backend` None takes the group's own;
     another backend makes a new group over the same ranks.  `device` is
-    this rank's device (default: its local card where CUDA is present, else
-    the CPU).  The mesh is registered under `axis`."""
+    this rank's device (default: its local card; with no CUDA device that
+    raises, and the CPU is used only when asked for).  The mesh is
+    registered under `axis`."""
     if not dist.is_initialized():
         raise RuntimeError(_NO_GROUP)
     world = dist.get_world_size()
@@ -140,7 +142,11 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS, *, backend: str | 
         group, backend = dist.group.WORLD, group_backend
     else:
         group = dist.new_group(list(range(world)), timeout=_timeout(), backend=backend)
-    dev = rank_device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not available; "
+                           f"pass device='cpu' to run on the CPU")
+    dev = rank_device(dev)
     mesh = Mesh(group=group, axis=axis, size=world, rank=dist.get_rank(), device=dev,
                 backend=backend)
     _MESHES[axis] = mesh
@@ -249,13 +255,21 @@ def check_same(mesh: Mesh, what: str, **values: int) -> None:
                            "run the same program on the same inputs")
 
 
+def broadcast_ints(mesh: Mesh, values, group=None) -> list[int]:
+    """Rank 0's integers `values` on every rank, by one broadcast on the
+    mesh's group or on `group`, a gloo group over the same ranks (the other
+    ranks pass as many placeholders)."""
+    nccl = group is None and mesh.backend == "nccl"
+    v = torch.tensor([int(x) for x in values], dtype=torch.int64,
+                     device=mesh.device if nccl else "cpu")
+    dist.broadcast(v, src=0, group=mesh.group if group is None else group)
+    return v.tolist()
+
+
 def broadcast_flags(mesh: Mesh, flags) -> list[bool]:
     """Rank 0's `flags` on every rank, by one broadcast: ranks that decide
     from what rank 0 saw take the same branches."""
-    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
-    v = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64, device=dev)
-    dist.broadcast(v, src=0, group=mesh.group)
-    return [bool(f) for f in v.tolist()]
+    return [bool(f) for f in broadcast_ints(mesh, (bool(f) for f in flags))]
 
 
 def waiting_group(mesh: Mesh):
@@ -286,12 +300,14 @@ def _rank_main(rank, world, init_method, backend, threads, fn, args, out):
 
 
 def run_ranks(fn, world: int, *, backend: str, init_method: str, args=(),
-              threads: int | None = None) -> list:
+              threads: int | None = None, timeout_s: float | None = None) -> list:
     """Run fn(rank, *args) in `world` spawned processes joined into one
     group (`backend`, `init_method`: a file:// or tcp://localhost URL), and
     return their results in rank order.  fn must be importable by name (a
     module-level function).  A rank that raises or dies fails the call
-    with its traceback; every process is stopped before this returns."""
+    with its traceback, and so do ranks that have not all reported within
+    `timeout_s` (None: no limit); every process is stopped before this
+    returns."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -302,6 +318,7 @@ def run_ranks(fn, world: int, *, backend: str, init_method: str, args=(),
     for p in procs:
         p.start()
     results, errors = {}, []
+    end = None if timeout_s is None else time.time() + timeout_s
     try:
         while len(results) + len(errors) < world:
             try:
@@ -310,6 +327,10 @@ def run_ranks(fn, world: int, *, backend: str, init_method: str, args=(),
                 dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                 if dead:
                     errors.append(f"a rank exited with code {dead[0]} and no result")
+                    break
+                if end is not None and time.time() > end:
+                    waiting = sorted(set(range(world)) - set(results))
+                    errors.append(f"ranks {waiting} reported nothing within {timeout_s:g} s")
                     break
                 continue
             if ok:

@@ -11,6 +11,7 @@ import dataclasses
 import json
 from typing import Literal
 
+from ..ba.bundle_adjust import BAConfig  # noqa: F401  (the reference's name)
 from ..dense.depth import DenseConfig
 from ..features.sift import SiftConfig
 from ..sfm.incremental import IncrementalConfig

@@ -35,8 +35,9 @@ stage starts after rank 0's files are written.  What a stage finds in the
 workspace (features, match tables, a scene to resume from) is what rank 0
 saw, broadcast before it writes anything.  Features are detected by rank 0
 alone, and the mesh stage (no sharded part) runs on rank 0 alone; the
-barriers that wait on such work take ``parallel.mesh.WAIT_S``, not a
-collective's timeout.
+ranks that wait on such work, and on rank 0's writes, wait up to
+``parallel.mesh.WAIT_S``, not a collective's timeout, and learn whether it
+raised, so that an error there is raised by every rank alike.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import contextlib
 import dataclasses
 import json
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -122,6 +124,27 @@ class StagedPipeline:
             return list(flags)
         return mesh_mod.broadcast_flags(self.device_mesh, flags)
 
+    def _rank0_alone(self, fn):
+        """fn() on rank 0 alone (work no other rank shares: features, the
+        mesh stage, the workspace's files), its result there and None on
+        the other ranks, which wait for it on the waiting group and raise
+        when it raised: a failure there is then one that every rank raises
+        and the ranks stay in step."""
+        if self._waiting is None:
+            return fn()
+        out, err = None, None
+        if self.writer:
+            try:
+                out = fn()
+            except Exception as e:
+                err = e
+        ok = mesh_mod.broadcast_ints(self.device_mesh, [err is None], group=self._waiting)[0]
+        if err is not None:
+            raise err
+        if not ok:
+            raise RuntimeError("rank 0 raised in work it does alone (see its error)")
+        return out
+
     @contextlib.contextmanager
     def _stage(self):
         """Brackets a stage with a barrier of the ranks at each end."""
@@ -150,15 +173,17 @@ class StagedPipeline:
             )
             for p in paths
         ]
-        if self.writer:
-            (self.ws / "views.json").write_text(json.dumps(
-                [dataclasses.asdict(r) for r in records], indent=2
-            ))
-        self.progress("preprocessing", 0.5)
+        self._rank0_alone(lambda: self._write_views_and_features(paths, records))
+        self.progress("preprocessing", 1.0)
+        return records
 
-        if self._done("features.npz") or not self.writer:
-            self.progress("preprocessing", 1.0)
-            return records
+    def _write_views_and_features(self, paths, records) -> None:
+        (self.ws / "views.json").write_text(json.dumps(
+            [dataclasses.asdict(r) for r in records], indent=2
+        ))
+        self.progress("preprocessing", 0.5)
+        if self._done("features.npz"):
+            return
         images = im_io.load_images_gray(paths)
         # Optional feature masks (parity: sparseBuilder.cpp:706-739):
         # a global mask.png applies to every view; a per-image
@@ -183,8 +208,6 @@ class StagedPipeline:
             self.ws / "features.npz",
             **{f: getattr(feats, f).cpu().numpy() for f in ("kp", "desc", "score", "mask")},
         )
-        self.progress("preprocessing", 1.0)
-        return records
 
     def _load_features(self) -> sift.Features:
         with np.load(self.ws / "features.npz") as d:
@@ -243,8 +266,6 @@ class StagedPipeline:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(self.seed)
 
-        from ..io import reports
-
         if have_putative:
             d = np.load(self.ws / "matches_putative.npz")
             pair_list, mi, mv = d["pairs"], d["idx"], d["valid"]
@@ -252,31 +273,16 @@ class StagedPipeline:
             pair_list = sp.generate_pairs(V, self.cfg, feats=feats)
             mi, mv = sp.match_pairs(feats, pair_list, self.cfg, self.progress,
                                     mesh=self.device_mesh)
-        if not have_putative and self.writer:
-            np.savez_compressed(self.ws / "matches_putative.npz",
-                                pairs=pair_list, idx=mi, valid=mv)
-            # Diagnostics parity (.cpp:1010-1019): adjacency SVG + stats.
-            counts = mv.sum(axis=1)
-            reports.write_adjacency_svg(self.ws / "putative_matches.svg", V, pair_list, counts)
-            (self.ws / "putative_graph_stats.json").write_text(
-                json.dumps(reports.graph_stats(V, pair_list, counts))
-            )
+        if not have_putative:
+            self._rank0_alone(lambda: self._write_putative(V, pair_list, mi, mv))
         if have_geometric:
             d = np.load(self.ws / "matches_geometric.npz")
             pair_list, mi, mv, pair_ok = d["pairs"], d["idx"], d["valid"], d["pair_ok"]
         else:
             mi, mv, pair_ok = sp.filter_pairs(feats, pair_list, mi, mv, self.cfg, generator,
                                               self.progress, intr=intr, img_hw=img_hw)
-        if not have_geometric and self.writer:
-            np.savez_compressed(self.ws / "matches_geometric.npz",
-                                pairs=pair_list, idx=mi, valid=mv, pair_ok=pair_ok)
-            # Diagnostics parity (.cpp:1249-1269).
-            counts = mv.sum(axis=1)
-            reports.write_adjacency_svg(self.ws / "geometric_matches.svg", V, pair_list, counts)
-            reports.write_graphviz(self.ws / "geometric_matches.dot", pair_list, counts)
-            (self.ws / "geometric_graph_stats.json").write_text(
-                json.dumps(reports.graph_stats(V, pair_list, counts))
-            )
+        if not have_geometric:
+            self._rank0_alone(lambda: self._write_geometric(V, pair_list, mi, mv, pair_ok))
 
         # Reconstruction with EXIF-identity shared-intrinsic groups, so BA
         # self-calibrates when cfg.self_calibrate.  A previous scene.npz
@@ -319,10 +325,33 @@ class StagedPipeline:
                 self.progress("sparse", 0.95, warning=f"geo-registration: {e}")
 
         report = self._sparse_report(scene, engine, V, geo_info, t0)
-        if self.writer:
-            self._write_sparse(scene, rgb, paths, report)
+        self._rank0_alone(lambda: self._write_sparse(scene, rgb, paths, report))
         self.progress("done", 1.0, n_points=report["n_points"])
         return scene, report
+
+    def _write_putative(self, V, pair_list, mi, mv) -> None:
+        from ..io import reports
+
+        np.savez_compressed(self.ws / "matches_putative.npz", pairs=pair_list, idx=mi, valid=mv)
+        # Diagnostics parity (.cpp:1010-1019): adjacency SVG + stats.
+        counts = mv.sum(axis=1)
+        reports.write_adjacency_svg(self.ws / "putative_matches.svg", V, pair_list, counts)
+        (self.ws / "putative_graph_stats.json").write_text(
+            json.dumps(reports.graph_stats(V, pair_list, counts))
+        )
+
+    def _write_geometric(self, V, pair_list, mi, mv, pair_ok) -> None:
+        from ..io import reports
+
+        np.savez_compressed(self.ws / "matches_geometric.npz",
+                            pairs=pair_list, idx=mi, valid=mv, pair_ok=pair_ok)
+        # Diagnostics parity (.cpp:1249-1269).
+        counts = mv.sum(axis=1)
+        reports.write_adjacency_svg(self.ws / "geometric_matches.svg", V, pair_list, counts)
+        reports.write_graphviz(self.ws / "geometric_matches.dot", pair_list, counts)
+        (self.ws / "geometric_graph_stats.json").write_text(
+            json.dumps(reports.graph_stats(V, pair_list, counts))
+        )
 
     def _sparse_report(self, scene, engine, V, geo_info, t0) -> dict:
         reg = scene.cam_mask.cpu().numpy()
@@ -342,6 +371,7 @@ class StagedPipeline:
             "geo": geo_info,
             "device": str(self.device),
             "recon_phase_s": {k: round(v, 3) for k, v in sorted(engine.timings.items())},
+            "ba_solves": dict(Counter(f"{kind} {c}x{p}x{o}" for kind, c, p, o in engine.ba_solves)),
         }
 
     def _write_sparse(self, scene, rgb, paths, report) -> None:
@@ -435,8 +465,7 @@ class StagedPipeline:
             return_maps=True, seed=self.seed, mesh=self.device_mesh,
             device=self.device,
         )
-        if self.writer:
-            self._write_dense(scene, pts, cols, maps)
+        self._rank0_alone(lambda: self._write_dense(scene, pts, cols, maps))
         self.progress("dense", 1.0, n_points=int(len(pts)))
         return pts, cols
 
@@ -459,11 +488,11 @@ class StagedPipeline:
     def mesh(self):
         """~ meshWork() (main.cpp:168-193): TSDF + marching tetrahedra from
         the dense stage's depth maps (falls back to the point cloud).  With a
-        mesh of ranks, rank 0 alone runs it; the others return (None, None)."""
+        mesh of ranks, rank 0 alone runs it; the others return (None, None)
+        (and raise when it raised)."""
         with self._stage():
-            if self.writer:
-                return self._mesh()
-        return None, None
+            out = self._rank0_alone(self._mesh)
+        return out if self.writer else (None, None)
 
     def _mesh(self):
         from ..dense import meshing

@@ -25,6 +25,7 @@ import torch
 
 from . import incremental as inc_mod
 from .global_sfm import GlobalEngine, Segments, _cg, _component_edges, _edge_tables
+from .global_sfm import GlobalConfig, rotation_averaging  # noqa: F401  (the reference's names)
 from .scene import Scene
 
 

@@ -15,7 +15,9 @@ camera's true centre (1 scene unit = 1 m), through /preprocessing and
 geo-registration and the GPS-prior BA.  Prints one JSON line per rung:
 the workspace's scene quality against the truth, the report's geo block,
 stage wall seconds, the engine's phase seconds and the decoders that ran.
-``chip_smoke.py`` runs both rungs and holds them to their bars.
+``chip_smoke.py`` runs both rungs and holds them to their bars, then runs
+rung B and rung A's first 6 frames through a service of two ranks
+(``ranks_main``, one gloo rank each, both on the one card).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import sys
 import tempfile
 import time
 import urllib.error
@@ -224,12 +227,14 @@ def rung_b_inputs(n_views: int = 200):
 def drive(files, cfg, stages, workspace, *, device, deadline_s: float = 900.0) -> dict:
     """Start the service on a free port of 127.0.0.1, upload `files`, run
     `stages` and read the first /event frames; stops the server.  Returns
-    the upload count, the stage seconds (the client's and the service's),
-    the final status, the SSE frames and the decoders that ran."""
+    the upload count, the stage seconds (the client's and the service's;
+    with ranks, each rank's too), the final status, the SSE frames and the
+    decoders that ran.  With cfg.devices = N > 1 this is rank 0's part;
+    ranks 1..N-1 call ``service.http_server.follow`` meanwhile."""
     from ..io import images as im_io
     from ..service.http_server import start_background
 
-    httpd, _, port = start_background(str(workspace), cfg, host="127.0.0.1", device=device)
+    httpd, state, port = start_background(str(workspace), cfg, host="127.0.0.1", device=device)
     try:
         client = Client(port)
         t0 = time.time()
@@ -242,12 +247,53 @@ def drive(files, cfg, stages, workspace, *, device, deadline_s: float = 900.0) -
         frames = client.sse_frames(3)
         code, ply = client.get("/files/colorized.ply")
         return {"uploaded": len(body["saved"]), "upload_s": round(upload_s, 3),
-                "client_stage_s": seen, "stage_s": status["stage_s"], "status": status,
+                "client_stage_s": seen, "stage_s": status["stage_s"],
+                "rank_stage_s": state.rank_stage_s, "status": status,
                 "sse": frames, "colorized_download": code == 200 and ply.startswith(b"ply"),
                 "decoders": dict(im_io.DECODER)}
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+def ranks_main(rank: int, spec: dict) -> dict:
+    """One rank of a service of the group's ranks on spec["device"]: for
+    each (name, files, cfg, stages) of spec["rungs"] in turn, rank 0 serves
+    a fresh workspace spec["root"]/<name> and drives it (``drive``) while
+    the others follow; each rank resets the kernel counts just before and
+    reads them just after.  Returns, by rung, rank 0's drive result, every
+    rank's launches and kernel calls by variant, and rank 0's last call
+    (args, kwargs, on the CPU) of each (wrapper, variant) of spec["hold"]
+    that ran, for the caller to hold against its twin."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ..service.http_server import follow
+    from . import kernel_calls as kc
+    from .parallel_rung import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "jax_imported": "jax" in sys.modules}
+    for name, files, cfg, stages in spec["rungs"]:
+        cfg = dataclasses.replace(cfg, devices=dist.get_world_size())
+        ws = Path(spec["root"]) / name
+        kc.reset_counts()
+        captured = {}
+        with kc.recording(captured) as (_, calls):
+            t0 = time.time()
+            if rank == 0:
+                res = drive(files, cfg, stages, ws, device=spec["device"])
+            else:
+                follow(str(ws), cfg, device=spec["device"])
+                res = {}
+            res["wall_s"] = time.time() - t0
+        held = {k: captured[k] for k in spec.get("hold", ()) if rank == 0 and k in captured}
+        out[name] = {**res, "launches": kc.counts(), "calls": kc.named(calls),
+                     "held": to_device(held, "cpu")}
+    return out
 
 
 def main() -> None:
