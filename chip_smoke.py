@@ -8,8 +8,8 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    CUDA and nvcc versions; turns TF32 off for matmuls and convolutions;
 2. build: compiles the port's CUDA kernels from tpusfm_torch/csrc with nvcc
    (one nvcc per source, all started together), and prints the first
-   tensor-core instruction (HGMMA) of K1's bf16 kernel from cuobjdump
-   -sass of the built library (none is a failure);
+   tensor-core instruction (HGMMA) of each of K1's kernels, bf16 and f32,
+   from cuobjdump -sass of the built library (none is a failure);
 3. kernel K1 (fused top-2 matcher) against its plain PyTorch twin on the
    card, both variants: the bf16 tensor-core kernel (quantized=True, the
    main path's) bit-equal to its twin and to the f32 kernel on SIFT's u8
@@ -17,10 +17,16 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    32 pairs, at non-multiple shapes, with a fully masked B, the same bits
    on a repeat call; on off-grid float descriptors within 1e-5 x (|a|^2 +
    max |b|^2) of its twin (i1 equal where d2 - d1 exceeds that); the f32
-   kernel bit-equal to its twin and its ratio-test/cross-check `ok` equal
-   on float descriptors; median times (CUDA events, 2 warm-ups, 10 runs) of
-   both variants, their twins and, as a yardstick, torch.bmm on bf16 copies
-   (the product only, not the function);
+   kernel (three TF32 products) bit-equal to its twin on the grid, its
+   ratio-test/cross-check `ok` equal on float descriptors, and on the
+   reference's float descriptor sets (4 x 1024 x 1024, 3 x 130 x 200,
+   2 x 65 x 1, a fully masked B, every B row doubled) d1 and d2 within 4x
+   the float32 twin's own error against the float64 twin (floored at 1e-6
+   of the output's scale), i1 equal where the float64 twin's d2 - d1
+   exceeds twice that, ties to the lower index, the same bits on a repeat;
+   median times (CUDA events, 2 warm-ups, 10 runs) of both variants, their
+   twins and, as yardsticks, torch.bmm on bf16 copies and on the float32
+   inputs with TF32 off (the product only, not the function);
 4. the 20-view slice: run_sparse on cuda over the 20-view 480x640 rendered
    orbit scene with the reference bench's config, once; asserts >= 19/20
    views, ATE <= 0.05 (scene radius 8), > 1000 points, finite geometry,
@@ -64,7 +70,7 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 8. path kernels: K1's bf16 kernel bit-equal to its twin and to the f32
    kernel at the 200-view run's own chunk (real SIFT descriptors), the same
    bits on a repeat, within the off-grid tolerance of its twin on the same
-   chunk moved off the grid, all timed; K2, K3, K4 against their twins
+   chunk moved off the grid, both kernels timed; K2, K3, K4 against their twins
    evaluated in float64 on the card, at shape (a) and at (b), the
    reference bench's 500-camera problem
    (bench.py:171-202, about 1.5M observations, point-sorted): each within
@@ -98,10 +104,11 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    on the captured row-major table and on a lane-major copy, bit-equal,
    both timed; then the reference's sublane entry points (segsum_table,
    segsum_sorted, schur_fwd, schur_bwd: the same tables row-major (O, k),
-   launching K6, K7, K5 and K4; K6 and K7 read the table in place, K4
-   through its row-major permuted read, K5 a lane-major copy) at
-   path B's shapes and at path A's D = 7, as phase 8 (no main path runs
-   them: their launches are 0);
+   launching K6, K7, K5 and K4; K6, K7 and K5 read the table in place, K4
+   through its row-major permuted read) at path B's shapes and at path A's
+   D = 7, as phase 8, and K5's row-major read bit-equal to its lane-major
+   read at both, K5 alone timed with each read at path B in turns (no
+   main path runs them: their launches are 0);
 13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
    to their twins with zero rows outside the table, timed beside
    index_select; K6 at the gather run's shapes (k = 42 and 36);
@@ -213,8 +220,10 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
 
 The second-to-last stdout line is a JSON object with one entry per kernel
 K1-K9 and K2's unreduced mode, second K3 and K2 entries at the 500-camera
-shape, a second K4 entry at path B's cameras, a second K1 entry at the
-200-view chunk, K1-K4 entries at the pod rung's shapes, K2-K4 entries at
+shape, a second K4 entry at path B's cameras, a second K5 entry at path
+B's one group (D = 9), a second K1 entry at the 200-view chunk, K1's f32
+variant at the 20-view and 200-view chunks (launches 0: no main path
+takes it), K1-K4 entries at the pod rung's shapes, K2-K4 entries at
 the global run's final BA and K2 refine, K5 and K4 entries at the stellar
 run's, K5's held mode (D = 6) at the sharded 200-view run's rank 0, K1,
 K2 (held, refine), K3, K4 and K5 (D = 6, 7) at rank 0 of the two-rank
@@ -224,16 +233,18 @@ source,
 the TPU kernel it replaces, launches in its main-path run (the 20-view run
 for K1, the held 200-view run for the second K1 entry and K2-K4, the
 500-camera kernel-path solve of phase 10 for the second K3 and K2 entries,
-path A for K5, path B for K6, K7 and the second K4 entry, the gather run
+path A for K5, path B for K6, K7 and the second K4 and K5 entries, the
+20-view and 200-view runs for K1's f32 entries, the gather run
 for K8 and K9, the composition of phase 9 for K2 unreduced, the pod run
 for the pod entries, the global and stellar runs for theirs), max abs error
 against the (float64 for K2-K9) twin, kernel and twin milliseconds, the
 device time from torch.profiler (with the kernels of a call printed), the
 least time the card could take (bytes at 3.35 TB/s or operations at their
 peak, whichever is larger: K1's bf16 products at 989 TFLOP/s on the
-tensor cores, everything else float32 at 67 TFLOP/s) and what bounds it
-(K1's entries also carry the f32 variant's times and bound and the
-bf16 bmm yardstick), and the time of one PyTorch call computing the same
+tensor cores, K1's f32 entries three TF32 products at 495 TFLOP/s,
+everything else float32 at 67 TFLOP/s) and what bounds it (K1's entries
+also carry a torch.bmm yardstick, the f32 ones the CUDA cores' bound too),
+and the time of one PyTorch call computing the same
 function where there is one (index_add_ for K6, K7, index_select for K8,
 K9), by CUDA events and by torch.profiler (library_device_ms), all at the
 kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
@@ -266,6 +277,12 @@ K2_BENCH = "linearize_reduce_radial3_t (500-camera BA)"
 K4_PATH_B = "schur_bwd_t (path B, cameras)"
 # A second K1 entry at the 200-view run's own chunk, its launches that run's.
 K1_200 = "topk2_match (200-view chunk)"
+# K1's f32 variant (three TF32 products) at the 20-view and 200-view chunks;
+# no main path launches it (its launches are those runs' f32 count, 0).
+K1_F32 = "topk2_match f32 (20-view chunk)"
+K1_F32_200 = "topk2_match f32 (200-view chunk)"
+# K5 on path B's one intrinsic group (D = 9), its launches path B's at D = 9.
+K5_PATH_B = "schur_fwd_t (path B, D=9)"
 # The pod rung's entries: K1 at its matching chunk, K2-K4 at its final
 # 1000-camera BA, their launches those of the pod run.
 POD = {"topk2_match": "topk2_match (pod rung chunk)",
@@ -312,11 +329,12 @@ ENGINE_REF = {"global": {"registered": 200, "ate": 3.1109862795005183, "points":
               "stellar": {"registered": 200, "ate": 0.015944265696080647, "points": 1272,
                           "fx_err": -0.004865765571594238}}
 # Published H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory,
-# float32 outside the tensor cores, which every kernel but K1's bf16 one
-# computes in, and dense bf16 on the tensor cores.
+# float32 outside the tensor cores, which every kernel but K1's computes
+# in, and dense bf16 and TF32 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+TF32_TENSOR_FLOP_PER_S = 495e12
 # Float operations per observation of K2's per-observation math (projection,
 # distortion, Huber weight, closed-form Jacobians: ~290) and products (Hcc,
 # gc, Hpp, gp, W, cost: ~160); refine mode adds Jg and its products (Hcg,
@@ -421,11 +439,12 @@ def phase_build():
     cuda_build.kernels()
     print(f"build: {path.name} in {time.time() - t0:.2f} s")
     sass = _run([str(Path(cuda_build._nvcc()).with_name("cuobjdump")), "-sass", str(path)])
-    kernel = sass[sass.index("topk2_match_bf16_kernel"):].split("Function :")[0]
-    hgmma = [line.strip() for line in kernel.splitlines() if "HGMMA" in line]
-    if not hgmma:
-        raise AssertionError("K1's bf16 kernel has no tensor-core instruction in its SASS")
-    print(f"K1 bf16 kernel SASS: {len(hgmma)} HGMMA, the first: {hgmma[0]}")
+    for variant, name in (("bf16", "topk2_match_bf16_kernel"), ("f32", "topk2_match_tf32_kernel")):
+        kernel = sass[sass.index(name):].split("Function :")[0]
+        hgmma = [line.strip() for line in kernel.splitlines() if "HGMMA" in line]
+        if not hgmma:
+            raise AssertionError(f"K1's {variant} kernel has no tensor-core instruction in its SASS")
+        print(f"K1 {variant} kernel SASS: {len(hgmma)} HGMMA, the first: {hgmma[0]}")
 
 
 def _u8_grid(shape, gen, dev):
@@ -497,9 +516,9 @@ def _k1_off_grid(da, db, mb, label: str) -> float:
 
 
 def _k1_times(da, db, mb, label: str, card: str) -> dict:
-    """Both K1 variants on one chunk: CUDA-event and profiler times, twins,
-    bounds (bf16 products at the tensor-core rate, f32 ones at the float32
-    rate) and the product alone in torch.bmm on bf16 copies."""
+    """K1's bf16 kernel on one chunk: CUDA-event and profiler times, its
+    twin's, its bound (bf16 products at the tensor-core rate) and the
+    product alone in torch.bmm on bf16 copies."""
     import torch
 
     from tpusfm_torch.ops import topk2_match as k1
@@ -510,28 +529,98 @@ def _k1_times(da, db, mb, label: str, card: str) -> dict:
     a16, b16t = da.to(torch.bfloat16), db.to(torch.bfloat16).transpose(1, 2)
     res = {"ms": _median_ms(lambda: k1.match_topk2(da, db, mb, quantized=True)),
            "plain_ms": _median_ms(lambda: k1.match_topk2_reference(da, db, mb, quantized=True)),
-           "f32_ms": _median_ms(lambda: k1.match_topk2(da, db, mb)),
-           "f32_plain_ms": _median_ms(lambda: k1.match_topk2_reference(da, db, mb)),
            "product_only_ms": _median_ms(lambda: torch.bmm(a16, b16t)),
-           "device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb, quantized=True)),
-           "f32_device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb))}
+           "device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb, quantized=True))}
     res.update(_bound([da, db, mb], list(out), flops, BF16_TENSOR_FLOP_PER_S))
-    f32_bound = _bound([da, db, mb], list(out), flops)
-    res["f32_bound_ms"], res["f32_bound_by"] = f32_bound["bound_ms"], f32_bound["bound_by"]
     del a16, b16t
     print(f"K1 bf16 kernel at {label} on {card}: {res['ms']:.4f} ms (device "
           f"{_dev(res['device_ms'])}, {flops / res['ms'] / 1e9:.1f} TFLOP/s) vs twin "
           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
-    print(f"K1 f32 kernel at {label} on {card}: {res['f32_ms']:.4f} ms (device "
-          f"{_dev(res['f32_device_ms'])}, {flops / res['f32_ms'] / 1e9:.1f} TFLOP/s) vs twin "
-          f"{res['f32_plain_ms']:.4f} ms; bound {res['f32_bound_ms']:.4f} ms "
-          f"({res['f32_bound_by']})")
     print(f"torch.bmm on bf16 copies at {label}: {res['product_only_ms']:.4f} ms (product only, "
           f"not the function)")
     return res
 
 
-def phase_kernel(card: str) -> dict:
+def _k1_f32_times(da, db, mb, label: str, card: str) -> dict:
+    """K1's f32 kernel on one chunk: CUDA-event and profiler times, its
+    twin's, its bound (three TF32 products at the tensor-core rate, or the
+    bytes, whichever is longer) beside the CUDA cores' (one float32 product
+    at the float32 rate), and the product alone in torch.bmm on the float32
+    inputs with TF32 off (not the function)."""
+    import torch
+
+    from tpusfm_torch.ops import topk2_match as k1
+
+    P, na, nb = da.shape[0], da.shape[1], db.shape[1]
+    flops = 2.0 * P * na * nb * 128
+    out = k1.match_topk2(da, db, mb)
+    bt = db.transpose(1, 2)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the float32 bmm yardstick needs TF32 off")
+    res = {"ms": _median_ms(lambda: k1.match_topk2(da, db, mb)),
+           "plain_ms": _median_ms(lambda: k1.match_topk2_reference(da, db, mb)),
+           "product_only_ms": _median_ms(lambda: torch.bmm(da, bt)),
+           "device_ms": _device_ms(lambda: k1.match_topk2(da, db, mb)),
+           "library_ms": None, "library_device_ms": None}
+    res.update(_bound([da, db, mb], list(out), 3 * flops, TF32_TENSOR_FLOP_PER_S))
+    res["cuda_core_bound_ms"] = _bound([da, db, mb], list(out), flops)["bound_ms"]
+    dev_ms = res["device_ms"] or res["ms"]
+    print(f"K1 f32 kernel at {label} on {card}: {res['ms']:.4f} ms (device "
+          f"{_dev(res['device_ms'])}, {3 * flops / dev_ms / 1e9:.1f} TFLOP/s of TF32 products) "
+          f"vs twin {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"three TF32 products), {res['cuda_core_bound_ms']:.4f} ms on the CUDA cores; "
+          f"torch.bmm float32, TF32 off: {res['product_only_ms']:.4f} ms (product only)")
+    return res
+
+
+def _k1_f32_off_grid(P, na, nb, mask_frac, gen, dev, dup: bool = False) -> float:
+    """K1's f32 kernel on the reference's float descriptor sets
+    (tests/test_pallas_match.py: A ~ 20 N(0, 1), B the first rows of A plus
+    0.3 N(0, 1), then fresh rows; with `dup` every B row twice): d1 and d2
+    each within 4x the float32 twin's own largest error against the float64
+    twin, floored at 1e-6 of the output's scale; i1 equal to the float64
+    twin's wherever its d2 - d1 exceeds twice that; the same bits on a
+    repeat; with `dup`, d2 = d1 and i1 even (a tie keeps the lower index).
+    Returns the larger error in units of its tolerance."""
+    import torch
+
+    from tpusfm_torch.ops import topk2_match as k1
+
+    da = torch.randn((P, na, 128), generator=gen, device=dev) * 20
+    k = min(na, nb)
+    db = torch.cat([da[:, :k] + 0.3 * torch.randn((P, k, 128), generator=gen, device=dev),
+                    torch.randn((P, nb - k, 128), generator=gen, device=dev) * 20], dim=1)
+    if dup:
+        db = torch.repeat_interleave(db, 2, dim=1)
+    mb = torch.rand((P, db.shape[1]), generator=gen, device=dev) >= mask_frac
+    label = f"{P} x {na} x {db.shape[1]}{', B rows doubled' if dup else ''}, mask {mask_frac}"
+    got = _repeat_equal(lambda: k1.match_topk2(da, db, mb), f"K1 f32 at {label}")
+    f32 = k1.match_topk2_reference(da, db, mb)
+    f64 = k1.match_topk2_reference(da.double(), db.double(), mb)
+    rel, tols = 0.0, []
+    for i in range(2):
+        tol = max(4 * float((f32[i].double() - f64[i]).abs().max()),
+                  1e-6 * float(f64[i].abs().max()))
+        err = float((got[i].double() - f64[i]).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"K1 f32 at {label}: d{i + 1} error {err} above {tol}")
+        rel, tols = max(rel, err / tol), tols + [tol]
+    sep = (f64[1] - f64[0]) > 2 * max(tols)
+    if not torch.equal(got[2][sep], f64[2][sep]):
+        raise AssertionError(f"K1 f32 at {label}: i1 differs from the float64 twin on "
+                             f"{int((got[2] != f64[2])[sep].sum())} separated rows")
+    if dup and not (torch.equal(got[0], got[1]) and not bool((got[2] % 2).any())):
+        raise AssertionError(f"K1 f32 at {label}: a tie lost its lower index or its d2")
+    if mask_frac > 1 and not bool((got[0] >= 1e38).all()):
+        raise AssertionError("K1 f32: fully masked B must give d1 >= 1e38")
+    print(f"K1 f32 kernel within tolerance of the float64 twin off the grid at {label}: largest "
+          f"error {rel:.3f} of it, i1 equal on {int(sep.sum())}/{sep.numel()} separated rows")
+    return rel
+
+
+def phase_kernel(card: str) -> tuple[dict, dict]:
+    """K1's two variants against their twins; returns the bf16 and the f32
+    kernels' entries at the 20-view chunk."""
     import torch
 
     from tpusfm_torch.ops import topk2_match as k1
@@ -569,13 +658,21 @@ def phase_kernel(card: str) -> dict:
                              "descriptors")
     print(f"K1 f32 kernel's ok equal to twin on float descriptors ({int(ok_k.sum())} matches)")
 
+    rel = max(_k1_f32_off_grid(*shape, gen, dev) for shape in
+              ((4, 1024, 1024, 0.1), (3, 130, 200, 0.1), (2, 65, 1, 0.0), (2, 130, 200, 1.1)))
+    rel = max(rel, _k1_f32_off_grid(3, 300, 230, 0.0, gen, dev, dup=True))
+
     res = _k1_times(*main, "the 192-pair chunk", card)
     ms32 = _median_ms(lambda: k1.match_topk2(*c32, quantized=True))
     print(f"K1 bf16 kernel at the 32-pair chunk: {ms32:.4f} ms")
-    return {"name": "topk2_match", "route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
-            "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
-            "max_abs_err": err_main, "library_ms": None, "library_device_ms": None,
-            "variant": "quantized=True (bf16 wgmma)", **res}
+    common = {"route": "cuda", "source": "tpusfm_torch/csrc/topk2_match.cu",
+              "replaces": "tpusfm/ops/pallas_match.py:57", "launches": None,
+              "library_ms": None, "library_device_ms": None}
+    f32 = {"name": K1_F32, **common, "variant": "quantized=False (three TF32 wgmma products)",
+           "max_abs_err": err_main, "off_grid_err_of_tol": rel,
+           **_k1_f32_times(*main, "the 192-pair chunk", card)}
+    return ({"name": "topk2_match", **common, "max_abs_err": err_main,
+             "variant": "quantized=True (bf16 wgmma)", **res}, f32)
 
 
 def _check_quality(scene, report, gt, n_views, min_reg, max_ate, label):
@@ -626,7 +723,7 @@ def _only_bf16_k1(counts: dict, label: str) -> None:
                              f"{counts['topk2_match f32']} as f32; the path takes bf16 only")
 
 
-def phase_slice20(entry: dict):
+def phase_slice20(entries: dict):
     """Returns the run's scene, images and ground truth for the dense phase."""
     import torch
 
@@ -649,7 +746,8 @@ def phase_slice20(entry: dict):
     n_chunks = (n_pairs + ch - 1) // ch
     if launches < 2 * n_chunks:
         raise AssertionError(f"K1 launched {launches} times for {n_chunks} matched chunks")
-    entry["launches"] = launches
+    entries["topk2_match"]["launches"] = launches
+    entries[K1_F32]["launches"] = counts["topk2_match f32"]
     _check_quality(scene, report, gt, n_views, 19, 0.05, "20-view run")
     print(f"  K1 launches {launches}, wall {wall:.2f} s (first run_sparse in the process)")
     return scene, images, gt
@@ -764,6 +862,7 @@ def phase_slice200(entries: dict) -> tuple[dict, dict]:
     for name in BA_KERNELS:
         entries[name]["launches"] = counts[name]
     entries[K1_200]["launches"] = counts["topk2_match"]
+    entries[K1_F32_200]["launches"] = counts["topk2_match f32"]
     return captured, {"scene": scene, "registered": int(scene.cam_mask.sum()),
                       "points": int(scene.point_mask.sum()),
                       "matches": captured.pop("matches")}
@@ -1077,8 +1176,8 @@ def _check_k1_captured(captured: dict, card: str, run: str = "200-view") -> dict
     """K1 at a run's own chunk (its last call, real SIFT descriptors on the
     u8 grid): the bf16 kernel bit-equal to its twin and to the f32 kernel,
     the same bits on a repeat; the same chunk moved off the grid by a
-    seeded offset in (-0.5, 0.5) within the off-grid tolerance; both
-    variants timed.  Returns the entry's numbers."""
+    seeded offset in (-0.5, 0.5) within the off-grid tolerance; the bf16
+    kernel timed.  Returns the entry's numbers."""
     import torch
 
     da, db, mb = captured["match_topk2", "quantized"][0][:3]
@@ -1096,6 +1195,9 @@ def phase_ba_kernels(card, captured: dict, entries: dict) -> dict:
 
     dev = torch.device("cuda")
     entries[K1_200].update(_check_k1_captured(captured, card))
+    da, db, mb = captured["match_topk2", "quantized"][0][:3]
+    entries[K1_F32_200].update(max_abs_err=0.0, off_grid_err_of_tol=None, **_k1_f32_times(
+        da, db, mb, f"{da.shape[0]} pairs x {da.shape[1]} x {db.shape[1]} (200-view chunk)", card))
     res_a = _check_ba_kernels("(a) 200-view final BA", *(captured[n] for n in BA_KERNELS), card)
     for name, res in res_a.items():
         entries[name].update(res)
@@ -1790,6 +1892,7 @@ def phase_brown(card: str, entries: dict) -> dict:
                 for n in NEW_KERNELS[1:]:
                     entries[n]["launches"] = launches[n]
                 entries[K4_PATH_B]["launches"] = calls["schur_bwd_t", "D=6"]
+                entries[K5_PATH_B]["launches"] = calls["schur_fwd_t", "D=9"]
     first, gathered = (outs[n] for n in outs if n.startswith("kernels"))
     same = [torch.equal(x, y) for x, y in zip(first[:4], gathered[:4])]
     print(f"  pallas_gathers vs plain gathers: intrinsics, rotations, translations, points "
@@ -1820,7 +1923,8 @@ def phase_new_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) -> Non
     _check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=6"], "path A, D=6")
     entries["schur_fwd_t"].update(_check_kernel("schur_fwd_t", cap_a["schur_fwd_t", "D=7"],
                                                 "path A, D=7"))
-    _check_kernel("schur_fwd_t", cap_b["schur_fwd_t", "D=9"], "path B, D=9")
+    entries[K5_PATH_B].update(_check_kernel("schur_fwd_t", cap_b["schur_fwd_t", "D=9"],
+                                            "path B, one group, D=9 (lane-major W)"))
     entries["segsum_table_t"].update(_check_kernel(
         "segsum_table_t", cap_b["segsum_table_t", "k=96"], "path B, cameras, k=96"))
     _check_kernel("segsum_table_t", cap_b["segsum_table_t", "k=90"], "path B, one group, k=90")
@@ -1843,6 +1947,10 @@ def phase_sublane_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) ->
     schur_fwd, schur_bwd: row-major (O, k) tables) at the shapes paths A
     and B gave K6, K7, K5 and K4, which they launch; no main path runs
     them."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
     print(f"Sublane entry points (row-major tables) at path shapes on {card}")
     for name, cap, key, label in (
             ("segsum_table", cap_b, ("segsum_table_t", "k=96"), "path B, cameras, k=96"),
@@ -1850,6 +1958,25 @@ def phase_sublane_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) ->
             ("schur_fwd", cap_b, ("schur_fwd_t", "D=9"), "path B, D=9"),
             ("schur_bwd", cap_b, ("schur_bwd_t", "D=6"), "path B, cameras, D=6")):
         entries[name].update(_check_kernel(name, _sublane_call(cap[key]), label), launches=0)
+    for cap, label in ((cap_b, "D=9"), (cap_a, "D=7")):
+        a, kw = cap["schur_fwd_t", label]
+        row = _sublane_call((a, kw))[0]
+        got, lane = ot.schur_fwd(*row), ot.schur_fwd_t(*a, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, lane):
+            raise AssertionError(f"schur_fwd at {label}: K5's row-major read differs from its "
+                                 "lane-major read")
+        print(f"  schur_fwd at {label}: K5's row-major read bit-equal to its lane-major read")
+        if cap is cap_b:  # K5 alone, both reads with the layout, in turns
+            reads = {"lane": lambda: ot.schur_fwd_t(*a, **kw),
+                     "row": lambda: ot.schur_fwd_t(row[0].T, *a[1:], **kw)}
+            ms = {k: [] for k in reads}
+            for k in ("lane", "row", "row", "lane"):
+                ms[k].append(_device_ms(reads[k]))
+            entries["schur_fwd"]["k5_read_device_ms"] = ms
+            print(f"  K5 alone at path B, D=9, device ms in turns: lane-major {ms['lane']}, "
+                  f"row-major {ms['row']}")
+        del row
     _check_kernel("schur_fwd", _sublane_call(cap_a["schur_fwd_t", "D=7"]), "path A, D=7")
     _check_kernel("schur_bwd", _sublane_call(cap_a["schur_bwd_t", "D=7"]), "path A, one group, D=7")
 
@@ -2127,8 +2254,10 @@ def main() -> int:
     t_start = time.time()
     card = phase_device()
     phase_build()
-    entries = {"topk2_match": phase_kernel(card)}
+    k1_bf16, k1_f32 = phase_kernel(card)
+    entries = {"topk2_match": k1_bf16, K1_F32: k1_f32}
     entries[K1_200] = {**entries["topk2_match"], "name": K1_200, "launches": None}
+    entries[K1_F32_200] = {**k1_f32, "name": K1_F32_200, "launches": None}
     entries[POD["topk2_match"]] = {**entries["topk2_match"], "name": POD["topk2_match"],
                                    "launches": None}
     k1_service = SERVICE_RANKS["match_topk2", "quantized"]
@@ -2146,6 +2275,7 @@ def main() -> int:
             K3_BENCH: ("ba_schur.cu", 2023),
             K2_BENCH: ("ba_linearize.cu", 1439),
             K4_PATH_B: ("ba_schur.cu", 1891),
+            K5_PATH_B: ("ba_schur.cu", 1796),
             POD["linearize_reduce_radial3_t"]: ("ba_linearize.cu", 1439),
             POD["schur_mv_t"]: ("ba_schur.cu", 2023),
             POD["schur_bwd_t"]: ("ba_schur.cu", 1891),
@@ -2169,7 +2299,7 @@ def main() -> int:
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
                          "bound_by": None, "library_ms": None, "device_ms": None,
                          "library_device_ms": None}
-    scene20, images20, gt20 = phase_slice20(entries["topk2_match"])
+    scene20, images20, gt20 = phase_slice20(entries)
     dense_out = phase_dense(card, scene20, images20, gt20)
     captured, ref200 = phase_slice200(entries)
     cap_a = phase_selfcal200(entries, FOCAL_START)

@@ -95,6 +95,77 @@ def test_quantized_kernel_off_grid_within_tolerance(dev):
     assert torch.equal(got[2][sep], i1[sep]) and sep.float().mean() > 0.5
 
 
+def _planted_off_grid(P, na, nb, gen, dev):
+    """The reference's float descriptor sets (tests/test_pallas_match.py):
+    A ~ 20 N(0, 1), B the first min(na, nb) rows of A plus 0.3 N(0, 1),
+    then fresh 20 N(0, 1) rows."""
+    da = torch.randn((P, na, 128), generator=gen, device=dev) * 20
+    k = min(na, nb)
+    return da, torch.cat([da[:, :k] + 0.3 * torch.randn((P, k, 128), generator=gen, device=dev),
+                          torch.randn((P, nb - k, 128), generator=gen, device=dev) * 20], dim=1)
+
+
+def _f32_kernel_close(got, da, db, mb, what):
+    """K1 f32 against the float64 twin: d1 and d2 each within 4x the float32
+    twin's own largest error against it, floored at 1e-6 of the output's
+    scale (_oracle_close); i1 equal to the float64 twin's wherever its
+    d2 - d1 exceeds twice the larger of the two tolerances.  Returns the
+    mask of those rows."""
+    f32 = topk2_match.match_topk2_reference(da, db, mb)
+    f64 = topk2_match.match_topk2_reference(da.double(), db.double(), mb)
+    tols = []
+    for i in range(2):
+        _oracle_close(got[i], f32[i], f64[i], f"{what} d{i + 1}")
+        tols.append(max(4 * float((f32[i].double() - f64[i]).abs().max()),
+                        1e-6 * float(f64[i].abs().max())))
+    sep = (f64[1] - f64[0]) > 2 * max(tols)
+    assert torch.equal(got[2][sep], f64[2][sep]), what
+    return sep
+
+
+@pytest.mark.parametrize("P,na,nb,mask_frac", [(4, 1024, 1024, 0.1), (3, 130, 200, 0.1),
+                                               (2, 65, 1, 0.0), (2, 130, 200, 1.1)])
+def test_f32_kernel_off_grid_within_tolerance_of_float64_twin(dev, P, na, nb, mask_frac):
+    """K1 f32 (three TF32 products) on float descriptors: within the
+    tolerance of _f32_kernel_close against the float64 twin, the same bits
+    on a repeat call, one f32 launch per call; a fully masked B gives
+    d1 >= 1e38."""
+    gen = torch.Generator(device=dev).manual_seed(P * 1000 + na + 11)
+    da, db = _planted_off_grid(P, na, nb, gen, dev)
+    mb = torch.rand((P, nb), generator=gen, device=dev) >= mask_frac
+    before = dict(topk2_match.LAUNCHES)
+    got = topk2_match.match_topk2(da, db, mb)
+    again = topk2_match.match_topk2(da, db, mb)
+    torch.cuda.synchronize()
+    assert topk2_match.LAUNCHES == {"quantized": before["quantized"], "f32": before["f32"] + 2}
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    sep = _f32_kernel_close(got, da, db, mb, f"K1 f32 {P}x{na}x{nb}")
+    if mask_frac > 1:
+        assert bool((got[0] >= 1e38).all())
+    elif nb > 1:
+        assert sep.float().mean() > 0.5
+
+
+def test_f32_kernel_ties_keep_the_lowest_index_off_grid(dev):
+    """Every B row twice (rows 2j and 2j + 1 equal), off the grid: a tie
+    keeps the lower index and counts for d2, so d2 equals d1 bit for bit
+    and i1 is 2x the float64 twin's i1 on the undoubled B wherever that is
+    separated; within tolerance of the float64 twin on the doubled B."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    da, base = _planted_off_grid(3, 300, 230, gen, dev)
+    db = torch.repeat_interleave(base, 2, dim=1)
+    mb = torch.ones((3, 460), dtype=torch.bool, device=dev)
+    got = topk2_match.match_topk2(da, db, mb)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1]) and not bool((got[2] % 2).any())
+    _f32_kernel_close(got, da, db, mb, "K1 f32 doubled B")
+    f32 = topk2_match.match_topk2_reference(da, base, mb[:, :230])
+    f64 = topk2_match.match_topk2_reference(da.double(), base.double(), mb[:, :230])
+    tol = max(4 * float((f32[1].double() - f64[1]).abs().max()), 1e-6 * float(f64[1].abs().max()))
+    sep = (f64[1] - f64[0]) > 2 * tol
+    assert torch.equal(got[2][sep], 2 * f64[2][sep]) and sep.float().mean() > 0.5
+
+
 def test_quantized_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     """Shapes, dtypes, strides and devices the kernel does not take raise
     before any launch."""
@@ -444,6 +515,63 @@ def test_k5_warp_per_rank_matches_float64_twin_and_repeats(dev, w_dtype):
                       ot.schur_fwd_t_reference(W, ids, ranks, v.double(), P), f"K5 D={d}")
 
 
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_k5_row_major_read_bit_equal_to_lane_major_read(dev, w_dtype):
+    """K5 on the (3D, O) view of a row-major (O, 3D) table, at D = 1 to 9,
+    on test_k5_warp_per_rank_matches_float64_twin_and_repeats's ranks (0 to
+    3,000 rows, empty ranks, rows at 2^30) with ids outside [0, n), the
+    table one row into its storage so that the spans start at other
+    alignments: the bits of the lane-major read of the same values, zero at
+    the empty ranks, the same bits on a repeat."""
+    lengths = [3, 0, 1, 31, 32, 33, 3000, 0, 0, 0, 17, 64, 65, 2]
+    P = len(lengths) + 3
+    ranks = np.concatenate([np.repeat(np.arange(len(lengths)), lengths), np.full(40, 2 ** 30)])
+    O, n = len(ranks), 11
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ranks = torch.as_tensor(ranks.astype(np.int32), device=dev)
+    ids = torch.randint(0, n, (O,), generator=gen, device=dev, dtype=torch.int32)
+    ids[::7] = -1
+    ids[3::11] = n + 2
+    empty = torch.as_tensor([i for i in range(P) if i >= len(lengths) or not lengths[i]],
+                            device=dev)
+    layout = ot.obs_layout(ids, n, ranks, P)
+    for d in range(1, ot.MAX_W_ROWS + 1):
+        w = torch.randn((O + 1, 3 * d), generator=gen, device=dev).to(w_dtype)[1:]
+        v = torch.randn((n, d), generator=gen, device=dev)
+        before = ot.LAUNCHES["schur_fwd_t"]
+        row = ot.schur_fwd_t(w.T, ids, ranks, v, P, layout=layout)
+        again = ot.schur_fwd_t(w.T, ids, ranks, v, P, layout=layout)
+        lane = ot.schur_fwd_t(w.T.contiguous(), ids, ranks, v, P, layout=layout)
+        torch.cuda.synchronize()
+        assert ot.LAUNCHES["schur_fwd_t"] == before + 3, d
+        assert torch.equal(row, lane) and torch.equal(row, again), d
+        assert not bool(row[empty].any()), d
+
+
+def test_sublane_schur_fwd_makes_no_copy(dev):
+    """schur_fwd on a row-major (O, 27) float32 table of 200,000 rows: one
+    K5 launch, the bits of K5's lane-major read, and a peak of allocated
+    memory that rises by less than the table's bytes (no transposed
+    copy)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    O, n, P = 200_000, 40, 9000
+    ranks = torch.sort(torch.randint(0, P, (O,), generator=gen, device=dev)).values.int()
+    ids = torch.randint(-1, n + 1, (O,), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.randn((O, 27), generator=gen, device=dev)
+    v = torch.randn((n, 9), generator=gen, device=dev)
+    lane = ot.schur_fwd_t(w.T.contiguous(), ids, ranks, v, P)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(ot.LAUNCHES)
+    got = ot.schur_fwd(w, ids, ranks, v, P)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    assert ot.LAUNCHES == {**before, "schur_fwd_t": before["schur_fwd_t"] + 1}
+    assert rise < w.numel() * w.element_size(), rise
+    assert torch.equal(got, lane)
+
+
 def test_k8_k9_bit_equal_to_twins_and_repeat(dev, k2_inputs):
     """K8 on tables of 6, 7 and 9 columns with ids in any order, negative
     and past the table; K9 on the rank-space points by sorted ranks across
@@ -766,8 +894,8 @@ def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
     """segsum_table, segsum_sorted, schur_fwd and schur_bwd on row-major
     (O, k) tables at the 200-view shape: one launch of K6, K7, K5 and K4
     each, within 4x the float32 twin's error against the float64 twin; K4's
-    row-major permuted read and K7's row-major read give the bits of their
-    lane-major reads."""
+    row-major permuted read, K7's and K5's row-major reads give the bits of
+    their lane-major reads."""
     t = engine_tables["200-view"]
     cam, ranks, C, P = t["args"][3], t["args"][5], t["C"], t["P"]
     gen = torch.Generator(device="cuda").manual_seed(20 + d)
@@ -790,6 +918,8 @@ def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
     assert torch.equal(ot.schur_bwd(w, cam, ranks, z, C), lane)
     lane = ot.segsum_sorted_t(vals.T.contiguous(), ranks, P)
     assert torch.equal(ot.segsum_sorted(vals, ranks, P), lane)
+    lane = ot.schur_fwd_t(w.T.contiguous(), cam, ranks, v, P)
+    assert torch.equal(ot.schur_fwd(w, cam, ranks, v, P), lane)
 
 
 def test_k2_and_k4_launch_counts_at_path_a(engine_tables):

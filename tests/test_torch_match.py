@@ -81,6 +81,78 @@ def test_twin_bit_equal_on_u8_grid(name):
     np.testing.assert_array_equal(i[0].numpy(), np.asarray(ji))
 
 
+def _tf32(x):
+    """float32 values rounded to TF32 as cvt.rna.tf32.f32 does (to nearest,
+    ties away from zero): 0x1000 added to the bit pattern, the low 13 bits
+    cleared."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """K1 f32's split of each value: hi = tf32(x), lo = tf32(x - hi) (x - hi
+    is exact in float32)."""
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _split_match(da, db, mb, dtype):
+    """match_topk2_reference's function for one pair, with a.b taken as K1
+    f32 takes it, hi.lo + lo.hi + hi.hi, the products and their sum in
+    float64 (TF32 products are exact there), and the rest of the twin's
+    arithmetic in `dtype`: d1, d2, i1 and the largest |lo|."""
+    (ahi, alo), (bhi, blo) = _split(da), _split(db)
+    f = lambda x: torch.from_numpy(x.astype(np.float64))  # noqa: E731
+    ab = f(ahi) @ f(blo).T + f(alo) @ f(bhi).T + f(ahi) @ f(bhi).T
+    a, b = _t(da).to(dtype), _t(db).to(dtype)
+    a2 = torch.sum(a * a, dim=-1)
+    b2m = torch.where(_t(mb), torch.sum(b * b, dim=-1), torch.tensor(topk2_match.INF, dtype=dtype))
+    dts = b2m[None, :] - 2.0 * ab.to(dtype)
+    m1, i1 = torch.amin(dts, dim=-1), torch.argmin(dts, dim=-1)
+    m2 = torch.amin(dts.scatter(-1, i1[:, None], topk2_match.INF), dim=-1)
+    return m1 + a2, m2 + a2, i1.to(torch.int32), max(np.abs(alo).max(), np.abs(blo).max())
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32_split_within_tolerance_of_float64_off_grid(name):
+    """K1 f32's three-product split, emulated, on the reference's float
+    descriptor sets: d1 and d2 within 4x the float32 twin's own largest
+    error against the float64 twin (floored at 1e-6 of the output's
+    scale), i1 equal to the float64 twin's wherever its d2 - d1 exceeds
+    twice that tolerance.  The card tests hold the kernel to the same."""
+    da, db, _, mb = _case(name, grid=False)
+    got = _split_match(da, db, mb, torch.float64)
+    f32 = topk2_match.match_topk2_reference(_t(da)[None], _t(db)[None], _t(mb)[None])
+    f64 = topk2_match.match_topk2_reference(_t(da)[None].double(), _t(db)[None].double(),
+                                            _t(mb)[None])
+    assert got[3] > 0  # off the grid the lo parts carry bits
+    tols = []
+    for g, lo, hi in zip(got[:2], f32[:2], f64[:2]):
+        hi = hi[0]
+        tol = max(4 * float((lo[0].double() - hi).abs().max()), 1e-6 * float(hi.abs().max()))
+        assert float((g - hi).abs().max()) <= tol, (name, float((g - hi).abs().max()), tol)
+        tols.append(tol)
+    sep = (f64[1][0] - f64[0][0]) > 2 * max(tols)
+    assert torch.equal(got[2][sep], f64[2][0][sep])
+    if not name.endswith("all_masked"):
+        assert sep.float().mean() > 0.5
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32_split_bit_equal_to_f32_twin_on_u8_grid(name):
+    """On SIFT's u8 grid every value is exact in TF32, so the split's lo
+    parts are 0 and every partial sum is an integer below 2^24: the
+    emulated split, its tail in float32, equals the float32 twin bit for
+    bit."""
+    da, db, _, mb = _case(name, grid=True)
+    got = _split_match(da, db, mb, torch.float32)
+    want = topk2_match.match_topk2_reference(_t(da)[None], _t(db)[None], _t(mb)[None])
+    assert got[3] == 0
+    for g, w in zip(got[:3], want):
+        assert torch.equal(g, w[0])
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_full_matrix_matcher_bit_equal_on_u8_grid(name):
     da, db, ma, mb = _case(name, grid=True)

@@ -521,6 +521,28 @@ def test_sublane_schur_fwd_matches_reference_every_lane(tables, d, w_bf16):
 
 
 @pytest.mark.parametrize("d,w_bf16", _SUBLANE_W)
+def test_schur_fwd_t_takes_the_view_of_a_row_major_table(tables, d, w_bf16):
+    """schur_fwd_t on the (3D, O) view `w.T` of a row-major (O, 3D) table,
+    the form the sublane schur_fwd passes (K5 reads it in place on the
+    card), equals its result on the contiguous transpose; schur_fwd equals
+    both."""
+    s = _schur_inputs(tables, d=d, seed=100 + d)
+    ranks = torch.as_tensor(tables["ranks"])
+    cam = torch.as_tensor(_masked_ids(tables["obs_cam"], tables["C"], 110 + d))
+    vtab = torch.as_tensor(np.random.default_rng(120 + d).normal(
+        size=(tables["C"], d)).astype(np.float32))
+    w = torch.as_tensor(s["wT"].T.copy())
+    if w_bf16:
+        w = w.to(torch.bfloat16)
+    P = tables["P"]
+    view = tot.schur_fwd_t(w.T, cam, ranks, vtab, P)
+    assert not w.T.is_contiguous() and not tot.segsum_lane_major(w.T)
+    lane = tot.schur_fwd_t(w.T.contiguous(), cam, ranks, vtab, P)
+    assert torch.equal(view, lane)
+    assert torch.equal(tot.schur_fwd(w, cam, ranks, vtab, P), lane)
+
+
+@pytest.mark.parametrize("d,w_bf16", _SUBLANE_W)
 def test_sublane_schur_bwd_matches_reference(tables, d, w_bf16):
     s = _schur_inputs(tables, d=d, seed=70 + d)
     ranks = _dense_ranks(tables)

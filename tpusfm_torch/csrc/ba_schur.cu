@@ -70,38 +70,113 @@ constexpr int kMaxD = 9;
 // K3's camera pass reads kWzRowsInFlight scratch rows of W z at once.
 constexpr int kWzRowsInFlight = 4;
 
+// v[c] (D values) into vd; false for an id outside [0, n).
+template <int D>
+__device__ __forceinline__ bool load_v(int c, const float* __restrict__ vtab, int n,
+                                       float (&vd)[D]) {
+  if (c < 0 || c >= n) return false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) vd[d] = __ldg(vtab + (size_t)c * D + d);
+  return true;
+}
+
+// a += W_o^T v for one row whose 3D values w(0) .. w(3D-1) are (D, 3)
+// row-major.  K5's lane-major and row-major reads both run it, so they
+// give the same bits.
+template <int D, typename WLoad>
+__device__ __forceinline__ void add_row_wtv(WLoad w, const float (&vd)[D], float (&a)[3]) {
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    t0 += w(d * 3 + 0) * vd[d];
+    t1 += w(d * 3 + 1) * vd[d];
+    t2 += w(d * 3 + 2) * vd[d];
+  }
+  a[0] += t0;
+  a[1] += t1;
+  a[2] += t2;
+}
+
+// Bytes of shared memory a warp stages 32 rows of a row-major (O, 3D)
+// table in: the rows' span, plus the 16-byte word it starts inside.
+template <typename WT, int D>
+constexpr int kStageBytes = (32 * 3 * D * (int)sizeof(WT) + 16 + 15) / 16 * 16;
+
+// Starts copying elements [0, m) of `src` (m <= 32 x 3D), which lie in the
+// table [lo, hi), into the warp's 16-byte-aligned `stage`: element e lands
+// at stage + (src & 15) + e * sizeof(WT).  The 16-byte words that cover
+// the span go by cp.async, one a lane at a time, with no registers held
+// (the caller waits with cp.async.wait_all and __syncwarp); a word that
+// reaches past the table (at most its first and its last) goes element by
+// element, and of it only the span's elements.  Every lane must call it.
+template <typename WT>
+__device__ __forceinline__ void stage_span(const WT* __restrict__ src, int m,
+                                           const WT* __restrict__ lo, const WT* __restrict__ hi,
+                                           uint8_t* stage) {
+  const uintptr_t ps = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t pe = ps + (uintptr_t)m * sizeof(WT);
+  const uintptr_t ts = reinterpret_cast<uintptr_t>(lo), te = reinterpret_cast<uintptr_t>(hi);
+  const uintptr_t ab = ps & ~(uintptr_t)15;
+  const int words = (int)((pe - ab + 15) >> 4);
+  for (int i = (int)(threadIdx.x & 31); i < words; i += 32) {
+    const uintptr_t g = ab + 16 * (uintptr_t)i;
+    if (g >= ts && g + 16 <= te) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(stage + 16 * i))),
+                   "l"(g)
+                   : "memory");
+    } else {
+      for (uintptr_t x = g > ps ? g : ps; x < g + 16 && x < pe; x += sizeof(WT))
+        *reinterpret_cast<WT*>(stage + (x - ab)) = *reinterpret_cast<const WT*>(x);
+    }
+  }
+}
+
 // sum over the rows of rank r of W_o^T v[id_o], all D rows of W_o; rows
 // whose id is outside [0, n) add nothing.  The 32 lanes of one warp share
 // the work: lane l takes the rows begin + l, begin + l + 32, ... in order;
 // the lanes' sums are added with a fixed shuffle tree and lane 0 holds the
 // result.  Every lane of the warp must call it.
 //
+// W is read lane-major ((3D, O): value k of row o at k O + o, each load
+// coalesced over the warp's 32 rows) or, with kRowMajor, row-major ((O, 3D):
+// row o's 3D values contiguous).  A rank's rows are contiguous in the
+// rank-sorted table, so the row-major read stages each run of 32 rows, one
+// contiguous span of 32 x 3D values, into the warp's shared `stage` by
+// 16-byte asynchronous copies (stage_span), loads the rows' ids and v rows
+// while they land, and takes W from there; the arithmetic and its order
+// are the lane-major read's.
+//
 // The reference's `_schur_fwd_t_kernel` (tpusfm/ops/obs_table.py:1811-1815)
 // sums only d < 6 whatever D is, so on the TPU the intrinsic-group half of
 // the self-calibrating matvec (D = 7 or 9) drops the lanes past the sixth
 // and is not the transpose of its K4 half.  This port departs from it on
 // purpose: every lane counts, as the wrapper's contract states.
-template <typename WT, int D>
-__device__ __forceinline__ void rank_wtv_warp(const WT* __restrict__ wT,
+template <typename WT, int D, bool kRowMajor>
+__device__ __forceinline__ void rank_wtv_warp(const WT* __restrict__ w,
                                               const int* __restrict__ ids,
                                               const float* __restrict__ vtab, int n, int O,
-                                              int begin, int end, float (&a)[3]) {
+                                              int begin, int end, uint8_t* stage, float (&a)[3]) {
   a[0] = a[1] = a[2] = 0.f;
-  for (int o = begin + (int)(threadIdx.x & 31); o < end; o += 32) {
-    const int c = __ldg(ids + o);
-    if (c < 0 || c >= n) continue;
-    const float* v = vtab + (size_t)c * D;
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float vd = __ldg(v + d);
-      t0 += load_w(wT, (size_t)(d * 3 + 0) * O + o) * vd;
-      t1 += load_w(wT, (size_t)(d * 3 + 1) * O + o) * vd;
-      t2 += load_w(wT, (size_t)(d * 3 + 2) * O + o) * vd;
+  const int lane = threadIdx.x & 31;
+  float vd[D];
+  if constexpr (kRowMajor) {
+    for (int o0 = begin; o0 < end; o0 += 32) {
+      const int rows = min(32, end - o0);
+      const WT* span = w + (size_t)o0 * (3 * D);
+      stage_span(span, rows * 3 * D, w, w + (size_t)O * (3 * D), stage);
+      const bool live = lane < rows && load_v<D>(__ldg(ids + o0 + lane), vtab, n, vd);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      const WT* row = reinterpret_cast<const WT*>(
+                          stage + (reinterpret_cast<uintptr_t>(span) & 15)) + lane * (3 * D);
+      if (live) add_row_wtv<D>([&](int k) { return load_w(row, k); }, vd, a);
+      __syncwarp();  // the stage is read before the next run overwrites it
     }
-    a[0] += t0;
-    a[1] += t1;
-    a[2] += t2;
+  } else {
+    for (int o = begin + lane; o < end; o += 32)
+      if (load_v<D>(__ldg(ids + o), vtab, n, vd))
+        add_row_wtv<D>([&](int k) { return load_w(w, (size_t)k * O + o); }, vd, a);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -111,16 +186,23 @@ __device__ __forceinline__ void rank_wtv_warp(const WT* __restrict__ wT,
   }
 }
 
-// K5: y = W^T v per rank, D rows per block; one warp per rank.
-template <typename WT, int D>
-__global__ void __launch_bounds__(kThreads)
-schur_fwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ids,
+// K5: y = W^T v per rank, D rows per block; one warp per rank.  A warp's
+// loads are in flight for one of its round trips (rank range, then W and
+// ids, then v), so the read wants many warps an SM: the row-major read is
+// held to the lane-major read's 32 registers (eight blocks an SM).
+template <typename WT, int D, bool kRowMajor>
+__global__ void __launch_bounds__(kThreads, kRowMajor ? 8 : 1)
+schur_fwd_kernel(const WT* __restrict__ w, const int* __restrict__ ids,
                  const float* __restrict__ vtab, int n, const int* __restrict__ rank_start, int P,
                  int O, float* __restrict__ y) {
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  constexpr int kStage = kRowMajor ? kStageBytes<WT, D> : 16;
+  __shared__ __align__(16) uint8_t stage[kRowMajor ? kWarps : 1][kStage];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + warp;
   if (r >= P) return;  // uniform across the warp
   float a[3];
-  rank_wtv_warp<WT, D>(wT, ids, vtab, n, O, rank_start[r], rank_start[r + 1], a);
+  rank_wtv_warp<WT, D, kRowMajor>(w, ids, vtab, n, O, rank_start[r], rank_start[r + 1],
+                                  stage[kRowMajor ? warp : 0], a);
   if ((threadIdx.x & 31) == 0) {
     y[(size_t)r * 3] = a[0];
     y[(size_t)r * 3 + 1] = a[1];
@@ -376,10 +458,16 @@ int launch_bwd_d(int read, const void* wT, const int* ranks, const float* ztab, 
 }
 
 template <typename WT, int D>
-int launch_fwd_d(const void* wT, const int* ids, const float* vtab, int n, const int* rank_start,
-                 int P, int O, float* y, cudaStream_t stream) {
-  schur_fwd_kernel<WT, D><<<(P + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const WT*>(wT), ids, vtab, n, rank_start, P, O, y);
+int launch_fwd_d(int row_major, const void* wT, const int* ids, const float* vtab, int n,
+                 const int* rank_start, int P, int O, float* y, cudaStream_t stream) {
+  const WT* w = static_cast<const WT*>(wT);
+  const int blocks = (P + kWarps - 1) / kWarps;
+  if (row_major)
+    schur_fwd_kernel<WT, D, true><<<blocks, kThreads, 0, stream>>>(w, ids, vtab, n, rank_start,
+                                                                    P, O, y);
+  else
+    schur_fwd_kernel<WT, D, false><<<blocks, kThreads, 0, stream>>>(w, ids, vtab, n, rank_start,
+                                                                     P, O, y);
   return (int)cudaGetLastError();
 }
 
@@ -404,12 +492,12 @@ int launch_bwd(int D, int read, const void* wT, const int* ranks, const float* z
 }
 
 template <typename WT>
-int launch_fwd(int D, const void* wT, const int* ids, const float* vtab, int n,
+int launch_fwd(int D, int row_major, const void* wT, const int* ids, const float* vtab, int n,
                const int* rank_start, int P, int O, float* y, cudaStream_t stream) {
   switch (D) {
 #define TPUSFM_FWD_CASE(DD) \
   case DD:                  \
-    return launch_fwd_d<WT, DD>(wT, ids, vtab, n, rank_start, P, O, y, stream);
+    return launch_fwd_d<WT, DD>(row_major, wT, ids, vtab, n, rank_start, P, O, y, stream);
     TPUSFM_D_CASES(TPUSFM_FWD_CASE)
 #undef TPUSFM_FWD_CASE
     default:
@@ -499,13 +587,19 @@ extern "C" int tpusfm_ba_schur_bwd(int device, const void* wT, int w_bf16, int r
                                     stream);
 }
 
-// K5.  wT (3D, O) bf16 or f32 with 1 <= D <= 9; ids (O) int32 into vtab
-// (n, D) f32; rank_start (P + 1) from ObsLayout.  Writes y (P, 3) and
-// returns the CUDA error code of the launch.
-extern "C" int tpusfm_ba_schur_fwd(const void* wT, int w_bf16, int D, const int* ids,
-                                   const float* vtab, int n, const int* rank_start, int P, int O,
-                                   float* y, cudaStream_t stream) {
+// K5.  wT bf16 or f32 with 1 <= D <= 9, lane-major (3D, O) when
+// row_major = 0, row-major (O, 3D) when 1; ids (O) int32 into vtab (n, D)
+// f32; rank_start (P + 1) from ObsLayout; all on device `device`.  The two
+// reads give the same bits.  Writes y (P, 3) and returns the CUDA error
+// code of the launch.
+extern "C" int tpusfm_ba_schur_fwd(int device, const void* wT, int w_bf16, int row_major, int D,
+                                   const int* ids, const float* vtab, int n,
+                                   const int* rank_start, int P, int O, float* y,
+                                   cudaStream_t stream) {
   if (n <= 0 || P <= 0 || O <= 0 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  return w_bf16 ? launch_fwd<__nv_bfloat16>(D, wT, ids, vtab, n, rank_start, P, O, y, stream)
-                : launch_fwd<float>(D, wT, ids, vtab, n, rank_start, P, O, y, stream);
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return w_bf16 ? launch_fwd<__nv_bfloat16>(D, row_major, wT, ids, vtab, n, rank_start, P, O, y,
+                                            stream)
+                : launch_fwd<float>(D, row_major, wT, ids, vtab, n, rank_start, P, O, y, stream);
 }

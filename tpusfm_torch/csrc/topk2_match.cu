@@ -40,17 +40,42 @@
 // touched between an MMA's issue and its wait: otherwise ptxas serializes
 // the wgmmas (C7514).
 //
-// f32 (topk2_match_kernel, for float descriptors, not on the main path):
-// about 2*Na*Nb*128 FLOPs against (Na + Nb)*512 bytes per pair (some 512
-// FLOPs per byte at 1024 x 1024), so it is compute-bound on the CUDA
-// cores.  Design: a grid of (A tiles of 64 rows) x pairs; the A tile stays
-// in shared memory (transposed, so each thread reads its four rows as one
-// float4), B tiles of 64 rows stream through shared memory; a 256-thread
-// block computes the 64 x 64 distance tile as 4 x 4 fp32 FMA micro-tiles
-// and folds each thread's 4 columns into a running (m1, m2, i1) per row in
-// registers; 16 lanes then merge with the combine rule of
-// pallas_match.py:89-95, breaking exact ties by B index.  On the u8 grid it
-// too is exact and bit-equal to its twin.
+// f32 (topk2_match_tf32_kernel, for float descriptors, not on the main
+// path): the product a.b of the unrounded f32 values, |a|^2 and |b|^2 of
+// them too.  On the CUDA cores 2*Na*Nb*128 FLOPs at 67 TFLOP/s bound it at
+// 0.769 ms at 192 x 1024 x 1024; the tensor cores take f32 operands only
+// as TF32 (a 10-bit mantissa), so each value is split into two TF32 parts,
+// hi = rna(x) and lo = rna(x - hi) (x - hi is exact), and a.b is taken as
+// the three products hi.lo + lo.hi + hi.hi, each a wgmma .tf32; the one
+// left out, lo.lo, and lo's own rounding are below 2^-22 |x| |y| a term,
+// under the f32 sum's own error.  Three TF32 products at 495 TFLOP/s bound
+// it at 0.312 ms (bytes: 0.060 ms), so it is bound by operations.  On the
+// u8 grid every value is exact in TF32, lo = 0 and every partial sum is an
+// integer below 2^24, so it too is bit-equal to its twin.  Design, PR 8's
+// machinery: a block of 256 threads (two warpgroups) takes 128 A rows of
+// one pair; each warp loads its 16 A rows straight from device memory into
+// the TF32 register operand of wgmma, hi and lo of all sixteen k-steps
+// (128 registers a thread), with |a|^2 of the f32 values from the same
+// loads (four lanes a row, a two-step shuffle tree).  B tiles of 64 rows
+// stream through three raw f32 slots by bulk copy, and each warpgroup
+// converts its 32 rows of a landed tile into hi and lo parts, each 64 rows
+// x 512 bytes in the 128-byte-swizzled K-major layout (four 32-value K
+// blocks), in one of two buffers, with b2m from the unrounded values; the
+// rounding is two integer operations (add 0x1000, clear the low 13 bits),
+// which the card runs faster than cvt.rna.tf32 (tools/k1_probe.py).
+// Shared memory bounds the layout: two B buffers of 64 KB (hi and lo) and
+// three raw slots of 32 KB take 224 of the 227 KB a block may have, so A
+// stays in registers and a block has two warpgroups.  Each warpgroup issues
+// the 48 wgmma m64n64k8 of a tile into one f32 accumulator, the small
+// products first (hi.lo and lo.hi for all 16 k-steps, then hi.hi), so that
+// they are summed while the accumulator is still small; converts its half
+// of the next tile while they run; then folds the accumulator as the bf16
+// kernel does.  The warpgroups meet only at mbarriers (a buffer is full
+// when both halves are converted, empty when both warpgroups' MMAs on it
+// are done), so one folds while the other's MMAs run, and the fold costs
+// no time (k1_probe's "no fold" build).  Two accumulators in one
+// warpgroup instead ran out of registers, spilled, and ptxas serialized
+// the wgmmas (C7515).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,28 +86,12 @@
 namespace {
 
 constexpr int kD = 128;          // descriptor width
-constexpr int kTile = 64;        // A rows per block == B rows per streamed tile
-constexpr int kLds = kTile + 4;  // padded row stride of the transposed tiles
-constexpr int kThreads = 256;
 constexpr float kSentinel = 3.4e38f;
-constexpr size_t kSmemBytes = (2 * kD * kLds + 2 * kTile) * sizeof(float);
 
 struct Top2 {
   float m1, m2;
   int i1;
 };
-
-// Columns reach one thread in increasing index order, so a tie with m1
-// keeps the earlier index and lowers m2 (duplicates count for d2).
-__device__ __forceinline__ void top2_push(Top2& t, float v, int j) {
-  if (v < t.m1) {
-    t.m2 = t.m1;
-    t.m1 = v;
-    t.i1 = j;
-  } else if (v < t.m2) {
-    t.m2 = v;
-  }
-}
 
 __device__ __forceinline__ void top2_merge(Top2& x, float ym1, float ym2, int yi) {
   const float m1 = fminf(x.m1, ym1);
@@ -91,122 +100,6 @@ __device__ __forceinline__ void top2_merge(Top2& x, float ym1, float ym2, int yi
   x.m1 = m1;
   x.m2 = m2;
   x.i1 = take_y ? yi : x.i1;
-}
-
-// Copy rows [row0, row0 + kTile) of a (n, kD) matrix into sT[k][r],
-// zero-filling rows past n.
-__device__ __forceinline__ void load_tile_transposed(float* sT, const float* src, int row0, int n) {
-  for (int i = threadIdx.x; i < kTile * kD / 4; i += kThreads) {
-    const int r = i / (kD / 4);
-    const int k = (i % (kD / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD + k);
-    sT[(k + 0) * kLds + r] = v.x;
-    sT[(k + 1) * kLds + r] = v.y;
-    sT[(k + 2) * kLds + r] = v.z;
-    sT[(k + 3) * kLds + r] = v.w;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-topk2_match_kernel(const float* __restrict__ da, const float* __restrict__ db,
-                   const uint8_t* __restrict__ mask_b, float* __restrict__ d1,
-                   float* __restrict__ d2, int* __restrict__ i1, int na, int nb) {
-  extern __shared__ __align__(16) float smem[];
-  float* aT = smem;               // [kD][kLds]: A tile, transposed
-  float* bT = aT + kD * kLds;     // [kD][kLds]: current B tile, transposed
-  float* b2m = bT + kD * kLds;    // [kTile]: |b|^2 or the sentinel
-  float* a2 = b2m + kTile;        // [kTile]: |a|^2
-
-  const int pair = blockIdx.y;
-  const int row0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x & 15;  // columns tx*4 .. tx*4+3 of each B tile
-  const int ty = threadIdx.x >> 4;  // rows ty*4 .. ty*4+3 of the A tile
-  const float* A = da + (size_t)pair * na * kD;
-  const float* B = db + (size_t)pair * nb * kD;
-  const uint8_t* M = mask_b + (size_t)pair * nb;
-
-  load_tile_transposed(aT, A, row0, na);
-  __syncthreads();
-  if (threadIdx.x < kTile) {
-    float s = 0.f;
-    for (int k = 0; k < kD; ++k) {
-      const float v = aT[k * kLds + threadIdx.x];
-      s = fmaf(v, v, s);
-    }
-    a2[threadIdx.x] = s;
-  }
-
-  Top2 best[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) best[i] = {kSentinel, kSentinel, 0};
-
-  for (int col0 = 0; col0 < nb; col0 += kTile) {
-    __syncthreads();  // the previous B tile is consumed
-    load_tile_transposed(bT, B, col0, nb);
-    __syncthreads();
-    if (threadIdx.x < kTile) {
-      const int c = col0 + threadIdx.x;
-      float s = 0.f;
-      for (int k = 0; k < kD; ++k) {
-        const float v = bT[k * kLds + threadIdx.x];
-        s = fmaf(v, v, s);
-      }
-      b2m[threadIdx.x] = (c < nb && M[c]) ? s : kSentinel;
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kD; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(aT + k * kLds + ty * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(bT + k * kLds + tx * 4);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // b2m is written
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c < nb) {
-        const float bm = b2m[tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          top2_push(best[i], __fsub_rn(bm, __fmul_rn(2.f, acc[i][j])), c);
-      }
-    }
-  }
-
-  // Merge the 16 column groups of each row (lanes that differ in tx).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ym1 = __shfl_xor_sync(0xffffffffu, best[i].m1, off);
-      const float ym2 = __shfl_xor_sync(0xffffffffu, best[i].m2, off);
-      const int yi = __shfl_xor_sync(0xffffffffu, best[i].i1, off);
-      top2_merge(best[i], ym1, ym2, yi);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r < na) {
-        const size_t o = (size_t)pair * na + r;
-        const float s = a2[ty * 4 + i];
-        d1[o] = __fadd_rn(best[i].m1, s);
-        d2[o] = __fadd_rn(best[i].m2, s);
-        i1[o] = best[i].i1;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -347,8 +240,9 @@ __device__ __forceinline__ int f4_slot(int r, int f, int half) {
   return (f >> 4) * half + swizzled(r, (f >> 1) & 7) + (f & 1) * 8;
 }
 
-// The fold of one value: the branch-free form of top2_push (same result,
-// columns in increasing order).  v = b2m - 2 acc rounded once, as
+// The fold of one value of column j into a running (m1, m2, i1), columns
+// in increasing order: a tie with m1 keeps the earlier index and lowers m2
+// (duplicates count for d2).  v = b2m - 2 acc rounded once, as
 // __fsub_rn(b2m, __fmul_rn(2, acc)): 2 acc is exact.
 __device__ __forceinline__ void fold(Top2& t, float acc, float bm, int j) {
   const float v = fmaf(-2.f, acc, bm);
@@ -535,13 +429,267 @@ topk2_match_bf16_kernel(const float* __restrict__ da, const float* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The f32 variant: three TF32 products on the tensor cores (wgmma .tf32).
+
+constexpr int kThreadsF = 256;              // two warpgroups
+constexpr int kRowsAF = 128;                // A rows per block: 64 per warpgroup
+constexpr int kKBlockF = kTileB * 128;      // bytes of one 32-value K block of a TF32 B part
+constexpr int kPartF = (kD / 32) * kKBlockF;  // bytes of one part (hi or lo) of a B tile
+constexpr int kBufF = 2 * kPartF;           // bytes of one B buffer: hi, then lo
+constexpr int kBufsF = 2;                   // B buffers
+constexpr int kRawSlotsF = 3;               // f32 B tiles in flight
+constexpr int kB2mF = 3;                    // rows of b2m: tiles t, t+1 and t+2 are live
+constexpr size_t kSmemF = 1024 /* alignment slack */ + kBufsF * kBufF + kRawSlotsF * kRawB +
+                          kB2mF * kTileB * sizeof(float) +
+                          (kRawSlotsF + 2 * kBufsF) * sizeof(uint64_t);
+static_assert(kSmemF <= 232448, "more shared memory than a block may have");
+static_assert(kTileB * 8 == 2 * kThreadsF, "a warpgroup converts 32 rows, 8 lanes a row, twice");
+
+// x rounded to TF32, to nearest with ties away from zero, as cvt.rna.tf32
+// rounds a finite value: 0x1000 added to the bit pattern and the low 13
+// bits cleared.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (a residual below 2^-22 |x|), both parts TF32.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));  // x - hi is exact in f32
+}
+
+// D (64 x 64, f32, in registers) += A (64 x 8) B (64 x 8)^T in TF32: A from
+// registers (per warp of the warpgroup a 16 x 8 slice, mma.m16n8k8's A
+// layout: a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4) for
+// g = lane / 4, q = lane % 4), B K-major in shared memory by descriptor;
+// scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_64x64x8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t mbar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mbar) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreadsF, 1)
+topk2_match_tf32_kernel(const float* __restrict__ da, const float* __restrict__ db,
+                        const uint8_t* __restrict__ mask_b, float* __restrict__ d1,
+                        float* __restrict__ d2, int* __restrict__ i1, int na, int nb) {
+  extern __shared__ uint8_t smem_raw[];
+  // [2 buffers][hi, lo][4 K blocks][64 rows][128 B]
+  uint8_t* sB = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const float* raw = reinterpret_cast<const float*>(sB + kBufsF * kBufF);  // [3][64][128] f32
+  float* b2m = reinterpret_cast<float*>(sB + kBufsF * kBufF + kRawSlotsF * kRawB);  // [3][64]
+  // [3] per raw slot (the bulk copy landed), [2] per buffer full (both
+  // halves converted), [2] per buffer empty (both warpgroups' MMAs done)
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(b2m + kB2mF * kTileB);
+  const uint32_t full0 = smem_u32(mbar + kRawSlotsF), empty0 = full0 + 8 * kBufsF;
+
+  const int pair = blockIdx.y;
+  const int row0 = blockIdx.x * kRowsAF;
+  const float* B = db + (size_t)pair * nb * kD;
+  const uint8_t* M = mask_b + (size_t)pair * nb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;           // warpgroup: A rows wg*64 .. wg*64+63, B rows wg*32 ..
+  const int nt = (nb + kTileB - 1) / kTileB;
+  const int prow = 32 * wg + ((threadIdx.x & 127) >> 3);  // rows prow, prow + 16 converted here
+  const int part = threadIdx.x & 7;   // and their float4s part, part + 8, ...
+
+  // B tile k takes raw slot k % 3 in its (k / 3)-th use (phase parity
+  // (k / 3) % 2); one thread issues it as one bulk copy of its rows.
+  auto issue_tile = [&](int k) {
+    const int left = nb - k * kTileB;
+    bulk_load(smem_u32(raw) + (k % kRawSlotsF) * kRawB, B + (size_t)k * kTileB * kD,
+              min(kTileB, left) * kD * sizeof(float), smem_u32(mbar + k % kRawSlotsF));
+  };
+  // Waits for tile k and converts this warpgroup's 32 rows of it into B
+  // buffer k % 2 (hi and lo parts, zero rows past nb) and b2m row k % 3:
+  // |b|^2 of the f32 values, the sentinel where masked, +inf past nb; then
+  // arrives on the buffer's full barrier.
+  auto convert_tile = [&](int k) {
+    uint32_t mask[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k * kTileB + prow + 16 * h;
+      mask[h] = part == 0 && c < nb ? __ldg(M + c) : 0u;
+    }
+    mbar_wait(smem_u32(mbar + k % kRawSlotsF), (k / kRawSlotsF) & 1);
+    const int left = nb - k * kTileB;
+    const float* src = raw + (k % kRawSlotsF) * kTileB * kD;
+    uint8_t* dst = sB + (k % kBufsF) * kBufF;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = prow + 16 * h;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kD / 32; ++i) {  // float4 8i + part: K block i, chunk part
+        const float4 x = r < left
+                             ? *reinterpret_cast<const float4*>(src + r * kD + 4 * (8 * i + part))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint4 hi, lo;
+        tf32_split(x.x, hi.x, lo.x);
+        tf32_split(x.y, hi.y, lo.y);
+        tf32_split(x.z, hi.z, lo.z);
+        tf32_split(x.w, hi.w, lo.w);
+        const int off = i * kKBlockF + swizzled(r, part);
+        *reinterpret_cast<uint4*>(dst + off) = hi;
+        *reinterpret_cast<uint4*>(dst + kPartF + off) = lo;
+        s += sumsq4(x);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (part == 0)
+        b2m[(k % kB2mF) * kTileB + r] = r >= left ? __int_as_float(0x7f800000)
+                                        : mask[h] ? s : kSentinel;
+    }
+    fence_async_smem();  // the stores before wgmma's reads
+    mbar_arrive(full0 + 8 * (k % kBufsF));
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRawSlotsF; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(mbar + s)) : "memory");
+    for (int b = 0; b < 2 * kBufsF; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(full0 + 8 * b),
+                   "r"(kThreadsF)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < kRawSlotsF && k < nt; ++k) issue_tile(k);
+
+  // This warp's 16 A rows as wgmma's TF32 register operand, hi and lo of
+  // all sixteen k-steps: rows g and g + 8 (g = lane / 4), values
+  // k = 8s + q and 8s + q + 4 (q = lane % 4), straight from device memory
+  // (zero past na); |a|^2 of the f32 values over the row's four lanes.
+  const int g = lane >> 2, q = lane & 3;
+  const int ra = row0 + wg * 64 + (warp & 3) * 16 + g;  // this thread's first A row
+  uint32_t ahi[kD / 8][4], alo[kD / 8][4];
+  float a2lo = 0.f, a2hi = 0.f;             // |a|^2 of rows ra and ra + 8
+  {
+    const float* A0 = da + ((size_t)pair * na + ra) * kD + q;
+    const float* A1 = A0 + 8 * kD;
+    const bool v0 = ra < na, v1 = ra + 8 < na;
+#pragma unroll
+    for (int s = 0; s < kD / 8; ++s) {
+      const float x[4] = {v0 ? __ldg(A0 + 8 * s) : 0.f, v1 ? __ldg(A1 + 8 * s) : 0.f,
+                          v0 ? __ldg(A0 + 8 * s + 4) : 0.f, v1 ? __ldg(A1 + 8 * s + 4) : 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tf32_split(x[i], ahi[s][i], alo[s][i]);
+      a2lo = fmaf(x[2], x[2], fmaf(x[0], x[0], a2lo));
+      a2hi = fmaf(x[3], x[3], fmaf(x[1], x[1], a2hi));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      a2lo += __shfl_xor_sync(0xffffffffu, a2lo, off);
+      a2hi += __shfl_xor_sync(0xffffffffu, a2hi, off);
+    }
+  }
+  convert_tile(0);
+
+  const uint32_t b_base = smem_u32(sB);
+  Top2 lo = {kSentinel, kSentinel, 0}, hi = lo;  // rows g and g + 8 of the warp's 16
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  // Step t of a warpgroup: once both halves of tile t are in their buffer,
+  // its 48 MMAs go out (hi.lo, lo.hi, then hi.hi); once both warpgroups'
+  // MMAs of tile t-1 are done, this warpgroup's half of tile t+1 is
+  // converted into their buffer while its MMAs run; they are awaited, the
+  // buffer's empty barrier is arrived on and tile t is folded from the
+  // accumulator.  The warpgroups keep no step in common, so one folds while
+  // the other's MMAs run.  Thread 0 refills the raw slot of tile t once
+  // both halves of it are converted.
+  for (int t = 0; t < nt; ++t) {
+    const int b = t % kBufsF;
+    mbar_wait(full0 + 8 * b, (t / kBufsF) & 1);
+    if (threadIdx.x == 0 && t + kRawSlotsF < nt) issue_tile(t + kRawSlotsF);
+    const uint32_t buf = b_base + b * kBufF;
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kD / 8; ++s)
+      wgmma_64x64x8_tf32_rs(acc, ahi[s],
+                            sw128_desc(buf + kPartF + (s >> 2) * kKBlockF + (s & 3) * 32), s > 0);
+#pragma unroll
+    for (int s = 0; s < kD / 8; ++s)
+      wgmma_64x64x8_tf32_rs(acc, alo[s], sw128_desc(buf + (s >> 2) * kKBlockF + (s & 3) * 32), 1);
+#pragma unroll
+    for (int s = 0; s < kD / 8; ++s)
+      wgmma_64x64x8_tf32_rs(acc, ahi[s], sw128_desc(buf + (s >> 2) * kKBlockF + (s & 3) * 32), 1);
+    wgmma_commit();
+    if (t + 1 < nt) {
+      if (t > 0) mbar_wait(empty0 + 8 * (1 - b), ((t - 1) / kBufsF) & 1);
+      convert_tile(t + 1);
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    mbar_arrive(empty0 + 8 * b);
+    const float* bm = b2m + (t % kB2mF) * kTileB + 2 * q;
+    const int cq = t * kTileB + 2 * q;
+#pragma unroll
+    for (int j = 0; j < kTileB / 8; ++j) {
+      const float2 bv = *reinterpret_cast<const float2*>(bm + 8 * j);
+      fold(lo, acc[4 * j + 0], bv.x, cq + 8 * j);
+      fold(lo, acc[4 * j + 1], bv.y, cq + 8 * j + 1);
+      fold(hi, acc[4 * j + 2], bv.x, cq + 8 * j);
+      fold(hi, acc[4 * j + 3], bv.y, cq + 8 * j + 1);
+    }
+  }
+
+  // Merge the four lanes that share a row, then write the rows.
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    top2_merge(lo, __shfl_xor_sync(0xffffffffu, lo.m1, off),
+               __shfl_xor_sync(0xffffffffu, lo.m2, off), __shfl_xor_sync(0xffffffffu, lo.i1, off));
+    top2_merge(hi, __shfl_xor_sync(0xffffffffu, hi.m1, off),
+               __shfl_xor_sync(0xffffffffu, hi.m2, off), __shfl_xor_sync(0xffffffffu, hi.i1, off));
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      if (r < na) {
+        const Top2& bt = h ? hi : lo;
+        const size_t o = (size_t)pair * na + r;
+        d1[o] = __fadd_rn(bt.m1, h ? a2hi : a2lo);
+        d2[o] = __fadd_rn(bt.m2, h ? a2hi : a2lo);
+        i1[o] = bt.i1;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // da (P, Na, 128) f32, db (P, Nb, 128) f32, mask_b (P, Nb) bool (one byte
 // each), all contiguous, 16-byte aligned and on device `device`; outputs
-// (P, Na).  quantized != 0 takes the bf16 tensor-core kernel, 0 the f32 one;
-// batches of more than 65,535 pairs go out in several launches.  Launches on
-// `stream` and returns the CUDA error code of the launch (0 = success).
+// (P, Na).  quantized != 0 takes the bf16 kernel, 0 the f32 (three TF32
+// products) one; batches of more than 65,535 pairs go out in several
+// launches.  Launches on `stream` and returns the CUDA error code of the
+// launch (0 = success).
 extern "C" int tpusfm_topk2_match(int device, const float* da, const float* db,
                                   const uint8_t* mask_b, float* d1, float* d2, int* i1, int P,
                                   int na, int nb, int quantized, cudaStream_t stream) {
@@ -549,9 +697,9 @@ extern "C" int tpusfm_topk2_match(int device, const float* da, const float* db,
   tpusfm_ba::DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   const void* kernel = quantized ? (const void*)topk2_match_bf16_kernel
-                                 : (const void*)topk2_match_kernel;
-  const size_t smem = quantized ? kSmemQ : kSmemBytes;
-  const int rows = quantized ? kRowsA : kTile;
+                                 : (const void*)topk2_match_tf32_kernel;
+  const size_t smem = quantized ? kSmemQ : kSmemF;
+  const int rows = quantized ? kRowsA : kRowsAF;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -564,8 +712,9 @@ extern "C" int tpusfm_topk2_match(int device, const float* da, const float* db,
                                                                 mask_b + b, d1 + a, d2 + a, i1 + a,
                                                                 na, nb);
     else
-      topk2_match_kernel<<<grid, kThreads, smem, stream>>>(da + a * kD, db + b * kD, mask_b + b,
-                                                           d1 + a, d2 + a, i1 + a, na, nb);
+      topk2_match_tf32_kernel<<<grid, kThreadsF, smem, stream>>>(da + a * kD, db + b * kD,
+                                                                mask_b + b, d1 + a, d2 + a, i1 + a,
+                                                                na, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

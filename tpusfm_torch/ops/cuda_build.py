@@ -99,7 +99,7 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_schur_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci,
                                             ci, ci, ci, vp, vp, vp]
         lib.tpusfm_ba_schur_bwd.restype = ci
-        lib.tpusfm_ba_schur_fwd.argtypes = [vp, ci, ci, vp, vp, ci, vp, ci, ci, vp, vp]
+        lib.tpusfm_ba_schur_fwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, ci, ci, vp, vp]
         lib.tpusfm_ba_schur_fwd.restype = ci
         lib.tpusfm_ba_segsum_table.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp,
                                                vp, vp]

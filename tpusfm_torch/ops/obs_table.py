@@ -177,7 +177,7 @@ def _rank_ranges(ranks: torch.Tensor, p: int) -> torch.Tensor:
     [rank_start[r], rank_start[r + 1]) hold rank r."""
     ranks = ranks.to(torch.int32).contiguous()
     q = torch.arange(p + 1, dtype=torch.int32, device=ranks.device)
-    return torch.searchsorted(ranks, q).to(torch.int32)
+    return torch.searchsorted(ranks, q, out_int32=True)
 
 
 def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
@@ -501,7 +501,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def _raw_stream(dev: torch.device) -> int:
     """The cudaStream_t of `dev`'s current stream, for the launchers that
-    take their device and set it themselves (K2, K3, K4, K8, K9): no Stream
+    take their device and set it themselves (K2, K3, K4, K5, K8, K9): no Stream
     object and no Python device guard around the call."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
@@ -809,11 +809,13 @@ def schur_fwd_t(wT, obs_cam, idx_sorted, vtab, p: int, *, layout: ObsLayout | No
     bf16/f32, D <= 9, vtab (n, D) with obs_cam any id column into it
     (camera or group).  Every one of the D rows counts (the reference's
     kernel sums only the first six; see csrc/ba_schur.cu).  `layout`
-    needs only its rank ranges for p."""
+    needs only its rank ranges for p.  On the card K5 reads in place a
+    contiguous lane-major wT or the (3D, O) view `w.T` of a contiguous
+    (O, 3D) table w (segsum_lane_major); the two give the same bits."""
     if not _dispatch("schur_fwd_t", wT, obs_cam, idx_sorted, vtab):
         return schur_fwd_t_reference(wT, obs_cam, idx_sorted, vtab, p)
     O = idx_sorted.shape[0]
-    _check_w("schur_fwd_t", wT, O)
+    _check_w("schur_fwd_t", wT, O, row_major_ok=True)
     D = wT.shape[0] // 3
     if not 1 <= D <= MAX_W_ROWS:
         raise ValueError(f"schur_fwd_t: 1 to {MAX_W_ROWS} rows per block, got D = {D}")
@@ -826,11 +828,10 @@ def schur_fwd_t(wT, obs_cam, idx_sorted, vtab, p: int, *, layout: ObsLayout | No
     ids, v = _i32(obs_cam), _f32(vtab)
     y = torch.empty((p, 3), dtype=torch.float32, device=v.device)
     lib = cuda_build.kernels()
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = lib.tpusfm_ba_schur_fwd(
-            wT.data_ptr(), int(wT.dtype == torch.bfloat16), D, ids.data_ptr(), v.data_ptr(), n,
-            rank_start.data_ptr(), p, O, y.data_ptr(), stream)
+    err = lib.tpusfm_ba_schur_fwd(
+        v.device.index, wT.data_ptr(), int(wT.dtype == torch.bfloat16),
+        int(not segsum_lane_major(wT, "schur_fwd_t")), D, ids.data_ptr(), v.data_ptr(), n,
+        rank_start.data_ptr(), p, O, y.data_ptr(), _raw_stream(v.device))
     cuda_build.check(lib, err, "schur_fwd_t launch")
     LAUNCHES["schur_fwd_t"] += 1
     return y
@@ -947,10 +948,11 @@ def schur_fwd(w_flat, obs_cam, idx_sorted, vtab, p: int):
     W_o, (D, 3) row-major), obs_cam (O,) ids into vtab (n, D), idx_sorted
     (O,) sorted ranks -> (p, 3) = sum over the rows of rank r of
     W_o^T v[obs_cam_o], every one of the D rows counted, as the
-    reference's sublane kernel does.  K5 takes a lane-major copy."""
+    reference's sublane kernel does.  K5 reads the (3D, O) view of the
+    table in place."""
     if not _dispatch("schur_fwd", w_flat, obs_cam, idx_sorted, vtab):
         return schur_fwd_reference(w_flat, obs_cam, idx_sorted, vtab, p)
-    return schur_fwd_t(w_flat.T.contiguous(), obs_cam, idx_sorted, vtab, p)
+    return schur_fwd_t(w_flat.contiguous().T, obs_cam, idx_sorted, vtab, p)
 
 
 def schur_bwd(w_flat, obs_cam, idx_sorted, ztab, n: int):

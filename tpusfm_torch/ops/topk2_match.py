@@ -3,8 +3,11 @@ plain PyTorch twin.
 
 Port of ``tpusfm/ops/pallas_match.py``, with its ``quantized`` contract:
 ``quantized=True`` (the main path's, for descriptors on SIFT's u8 grid)
-runs the product in bf16 on the tensor cores, ``quantized=False`` in f32
-on the CUDA cores.  The kernels are ``csrc/topk2_match.cu``; this module
+runs the product in bf16 on the tensor cores, ``quantized=False`` keeps
+f32 accuracy on them: each value is split into two TF32 parts and the
+product taken as three TF32 products (hi.lo + lo.hi + hi.hi), within
+float32 rounding of the twin off the u8 grid and bit-equal to it on the
+grid.  The kernels are ``csrc/topk2_match.cu``; this module
 checks what it is given, allocates the outputs, launches the variant asked
 for on the current stream and counts the launches per variant.  A CPU
 tensor takes the plain twin ``match_topk2_reference`` (a full distance
@@ -73,8 +76,9 @@ def match_topk2(da: torch.Tensor, db: torch.Tensor, mask_b: torch.Tensor,
                 quantized: bool = False):
     """Fused top-2 matcher over a batch of pairs; same contract as
     ``match_topk2_reference``.  CPU tensors take the twin; CUDA tensors
-    launch kernel K1's variant (bf16 tensor cores for quantized=True, f32
-    otherwise), one launch for the whole batch."""
+    launch kernel K1's variant (bf16 products for quantized=True, three
+    TF32 products otherwise, both on the tensor cores), one launch for the
+    whole batch."""
     if da.device.type == "cpu":
         return match_topk2_reference(da, db, mask_b, quantized)
     if da.device.type != "cuda":
