@@ -108,7 +108,15 @@ Phases, each raising on failure (nothing is caught, nothing falls back):
    through its row-major permuted read) at path B's shapes and at path A's
    D = 7, as phase 8, and K5's row-major read bit-equal to its lane-major
    read at both, K5 alone timed with each read at path B in turns (no
-   main path runs them: their launches are 0);
+   main path runs them: their launches are 0); segsum_table and schur_bwd,
+   which build their own layout, run under
+   torch.cuda.set_sync_debug_mode("error") (a host read raises) and give
+   the bits of a call outside it, their device time split by kernel name
+   into the layout kernel's and K6's or K4's; the layout kernel
+   (csrc/ba_layout.cu) at path A's and path B's id columns (cameras and
+   the one group) under the same mode, bit-equal to its torch.sort twin
+   on the card and the same bits on a repeat, timed beside the twin and
+   torch.sort;
 13. K8 and K9 at the shapes the gather run and path B gave them: bit-equal
    to their twins with zero rows outside the table, timed beside
    index_select; K6 at the gather run's shapes (k = 42 and 36);
@@ -247,7 +255,13 @@ also carry a torch.bmm yardstick, the f32 ones the CUDA cores' bound too),
 and the time of one PyTorch call computing the same
 function where there is one (index_add_ for K6, K7, index_select for K8,
 K9), by CUDA events and by torch.profiler (library_device_ms), all at the
-kernel's main-path shape; the last line is {"ok": true, "device": {...}}.
+kernel's main-path shape.  A seg_layout entry gives the layout kernel at
+path B's cameras (the function is a stable sort into segments, so its
+library call is torch.sort with stable=True), its launches those of the
+held 200-view run, where each kernel-path BA solve builds one layout; the
+sublane segsum_table and schur_bwd entries also carry their device time
+split into the layout's and the kernel's (layout_device_ms,
+kernel_device_ms).  The last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when no CUDA device is visible or the
 port is not importable.
 """
@@ -335,6 +349,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 TF32_TENSOR_FLOP_PER_S = 495e12
+# The layout kernel replaces no TPU kernel: the reference sums by id with
+# one-hot products and sorts nothing.
+LAYOUT_REPLACES = "none (set-up of K2-K4 and K6; tpusfm/ops/obs_table.py:128 sums without a sort)"
+# Kernel-name pieces of the layout kernel's three launches (csrc/ba_layout.cu).
+LAYOUT_KERNELS = ("seg_count_kernel", "seg_tile_scan_kernel", "seg_scatter_kernel")
 # Float operations per observation of K2's per-observation math (projection,
 # distortion, Huber weight, closed-form Jacobians: ~290) and products (Hcc,
 # gc, Hpp, gp, W, cost: ~160); refine mode adds Jg and its products (Hcg,
@@ -859,7 +878,9 @@ def phase_slice200(entries: dict) -> tuple[dict, dict]:
     scene, counts, _ = _run_rung(images, gt, cfg, "200-view run, intrinsics held", captured)
     if any(counts[n] == 0 for n in ("topk2_match",) + BA_KERNELS):
         raise AssertionError(f"200-view run: a kernel of the path did not launch: {counts}")
-    for name in BA_KERNELS:
+    if not counts["seg_layout"]:
+        raise AssertionError(f"200-view run: no layout was built by the layout kernel: {counts}")
+    for name in BA_KERNELS + ("seg_layout",):
         entries[name]["launches"] = counts[name]
     entries[K1_200]["launches"] = counts["topk2_match"]
     entries[K1_F32_200]["launches"] = counts["topk2_match f32"]
@@ -1979,6 +2000,103 @@ def phase_sublane_kernels(card: str, cap_a: dict, cap_b: dict, entries: dict) ->
         del row
     _check_kernel("schur_fwd", _sublane_call(cap_a["schur_fwd_t", "D=7"]), "path A, D=7")
     _check_kernel("schur_bwd", _sublane_call(cap_a["schur_bwd_t", "D=7"]), "path A, one group, D=7")
+    for name, cap, key, label, entry in (
+            ("segsum_table", cap_b, ("segsum_table_t", "k=96"), "path B, cameras, k=96", True),
+            ("schur_bwd", cap_b, ("schur_bwd_t", "D=6"), "path B, cameras, D=6", True),
+            ("schur_bwd", cap_a, ("schur_bwd_t", "D=7"), "path A, one group, D=7", False)):
+        split = _no_host_read_split(name, _sublane_call(cap[key])[0], label)
+        if entry:
+            entries[name].update(split)
+    for cap, key, label, entry in ((cap_b, ("schur_bwd_t", "D=6"), "path B, cameras", True),
+                                   (cap_b, ("schur_bwd_t", "D=9"), "path B, one group", False),
+                                   (cap_a, ("schur_bwd_t", "D=6"), "path A, cameras", False),
+                                   (cap_a, ("schur_bwd_t", "D=7"), "path A, one group", False)):
+        a = cap[key][0]
+        res = _check_layout(a[1], a[4], label)
+        if entry:
+            entries["seg_layout"].update(res)
+
+
+@contextlib.contextmanager
+def _no_host_read():
+    """torch.cuda.set_sync_debug_mode("error") inside the block: a call that
+    makes the host wait for the device raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _no_host_read_split(name: str, a: tuple, label: str) -> dict:
+    """A sublane entry point that builds its own layout: one call under
+    _no_host_read, bit-equal to a call outside it, and its device time
+    split by kernel name into the layout kernel's and the rest (K6's or
+    K4's), each kernel's mean record over 10 calls (one launch each a
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusfm_torch.ops import obs_table as ot
+    from tpusfm_torch.tools.profile_rung import _device_kernels
+
+    fn = getattr(ot, name)
+    with _no_host_read():
+        got = fn(*a)
+    if not torch.equal(got, fn(*a)):
+        raise AssertionError(f"{name} at {label}: the call under sync debug mode 'error' differs")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn(*a)
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof)
+    lay = sum(us / n for k, n, us in rows if any(p in k for p in LAYOUT_KERNELS)) / 1e3
+    rest = sum(us / n for k, n, us in rows if not any(p in k for p in LAYOUT_KERNELS)) / 1e3
+    print(f"  {name} at {label}: no host read (sync debug mode 'error'); device "
+          f"{lay + rest:.4f} ms = layout {lay:.4f} + kernel {rest:.4f} "
+          f"({', '.join(_kernel_name(k) for k, _, _ in rows)})")
+    return {"layout_device_ms": lay, "kernel_device_ms": rest}
+
+
+def _check_layout(ids, n: int, label: str) -> dict:
+    """The layout kernel at one id column, two calls under _no_host_read:
+    each bit-equal to its torch.sort twin on the card; events ms of kernel,
+    twin and torch.sort(stable=True) of the same keys, their device ms, and
+    the bound (the ids read once, the layout written once)."""
+    import torch
+
+    from tpusfm_torch.ops import obs_table as ot
+
+    with _no_host_read():
+        got, again = ot.seg_layout(ids, n), ot.seg_layout(ids, n)
+    twin = ot.seg_layout_reference(ids, n)
+    torch.cuda.synchronize()
+    err = 0
+    for g, r, w, part in zip(got, again, twin, ("seg_perm", "seg_start", "chunk_start",
+                                                "arrivals", "in_order")):
+        if not (torch.equal(g, w) and torch.equal(r, g)):
+            raise AssertionError(f"seg_layout at {label}: {part} differs from the twin's")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    key = torch.where((ids >= 0) & (ids < n), ids, torch.full_like(ids, n))
+
+    def sort():
+        return torch.sort(key, stable=True)
+
+    res = {"max_abs_err": float(err), "ms": _median_ms(lambda: ot.seg_layout(ids, n)),
+           "plain_ms": _median_ms(lambda: ot.seg_layout_reference(ids, n)),
+           "library_ms": _median_ms(sort), "device_ms": _device_ms(lambda: ot.seg_layout(ids, n)),
+           "library_device_ms": _device_ms(sort)}
+    res.update(_bound([ids], got, 0.0))
+    print(f"  seg_layout at {label} (O={ids.shape[0]}, n={n}, in order "
+          f"{int(got[4])}): bit-equal to its twin, twice, with no host read; kernel "
+          f"{res['ms']:.4f} ms (device {_dev(res['device_ms'])}), twin {res['plain_ms']:.4f} ms, "
+          f"torch.sort {res['library_ms']:.4f} ms (device {_dev(res['library_device_ms'])}), "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
 
 
 # Path A starts from the true focal and holds fx to 1%.  On this sandbox's
@@ -2290,12 +2408,15 @@ def main() -> int:
             "segsum_table": ("ba_segsum.cu", 128),
             "segsum_sorted": ("ba_segsum.cu", 224),
             "schur_fwd": ("ba_schur.cu", 851),
-            "schur_bwd": ("ba_schur.cu", 964)}
+            "schur_bwd": ("ba_schur.cu", 964),
+            # The segment layout, which replaces no TPU kernel.
+            "seg_layout": ("ba_layout.cu", None)}
     sources.update({label: sources[name] for (name, _), label in SERVICE_RANKS.items()
                     if name in sources})
     for name, (src, line) in sources.items():
         entries[name] = {"name": name, "route": "cuda", "source": f"tpusfm_torch/csrc/{src}",
-                         "replaces": f"tpusfm/ops/obs_table.py:{line}", "launches": None,
+                         "replaces": f"tpusfm/ops/obs_table.py:{line}" if line else
+                         LAYOUT_REPLACES, "launches": None,
                          "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None,
                          "bound_by": None, "library_ms": None, "device_ms": None,
                          "library_device_ms": None}

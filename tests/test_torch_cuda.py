@@ -19,6 +19,7 @@ from tpusfm_torch.pipeline.sparse import run_sparse
 from tpusfm_torch.utils import metrics
 from tpusfm_torch.utils.synth_render import render_orbit_images
 from tpusfm_torch.utils.synth_scene import point_sorted_ba_problem
+from torch_layout_cases import layout_cases, numpy_layout
 
 torch.set_num_threads(2)
 
@@ -865,7 +866,7 @@ def test_k4_read_paths_give_the_same_bits(engine_tables, shape, d, w_dtype):
     t = engine_tables[shape]
     cam, ranks = t["args"][3], t["args"][5]
     lay, glay = t["layout"], t["grp_layout"]
-    assert not lay.in_seg_order and glay.in_seg_order
+    assert not bool(lay.in_seg_order) and bool(glay.in_seg_order)
     gen = torch.Generator(device="cuda").manual_seed(d)
     W = torch.randn((3 * d, cam.shape[0]), generator=gen, device="cuda").to(w_dtype)
     z = torch.randn((t["P"], 3), generator=gen, device="cuda")
@@ -876,8 +877,8 @@ def test_k4_read_paths_give_the_same_bits(engine_tables, shape, d, w_dtype):
                            w_seg=W.T[perm].contiguous().T),
             ot.schur_bwd_t(W, cam, ranks, z, t["C"], layout=lay)]
     grp = [ot.schur_bwd_t(W, t["grp"], ranks, z, 1, layout=glay),
-           ot.schur_bwd_t(W, t["grp"], ranks, z, 1,
-                          layout=dataclasses.replace(glay, in_seg_order=False)),
+           ot.schur_bwd_t(W, t["grp"], ranks, z, 1, layout=dataclasses.replace(
+               glay, in_seg_order=torch.zeros(1, dtype=torch.int32, device="cuda"))),
            ot.schur_bwd_t(W, t["grp"], ranks, z, 1, layout=glay)]
     torch.cuda.synchronize()
     assert all(torch.equal(cams[0], c) for c in cams[1:])
@@ -893,9 +894,10 @@ def test_k4_read_paths_give_the_same_bits(engine_tables, shape, d, w_dtype):
 def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
     """segsum_table, segsum_sorted, schur_fwd and schur_bwd on row-major
     (O, k) tables at the 200-view shape: one launch of K6, K7, K5 and K4
-    each, within 4x the float32 twin's error against the float64 twin; K4's
-    row-major permuted read, K7's and K5's row-major reads give the bits of
-    their lane-major reads."""
+    each (segsum_table and schur_bwd also one of the layout kernel, for the
+    layout they build), within 4x the float32 twin's error against the
+    float64 twin; K4's row-major permuted read, K7's and K5's row-major
+    reads give the bits of their lane-major reads."""
     t = engine_tables["200-view"]
     cam, ranks, C, P = t["args"][3], t["args"][5], t["C"], t["P"]
     gen = torch.Generator(device="cuda").manual_seed(20 + d)
@@ -911,7 +913,9 @@ def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
         before = dict(ot.LAUNCHES)
         got = getattr(ot, name)(*a)
         torch.cuda.synchronize()
-        assert ot.LAUNCHES == {**before, kernel: before[kernel] + 1}, name
+        layout = int(name in ("segsum_table", "schur_bwd"))
+        assert ot.LAUNCHES == {**before, kernel: before[kernel] + 1,
+                               "seg_layout": before["seg_layout"] + layout}, name
         twin = getattr(ot, name + "_reference")
         _oracle_close(got, twin(*a), twin(*_f64(a)), f"{name} D={d}")
     lane = ot.schur_bwd_t(w.T.contiguous(), cam, ranks, z, C)
@@ -920,6 +924,125 @@ def test_sublane_entry_points_launch_their_kernels(engine_tables, d, w_dtype):
     assert torch.equal(ot.segsum_sorted(vals, ranks, P), lane)
     lane = ot.schur_fwd_t(w.T.contiguous(), cam, ranks, v, P)
     assert torch.equal(ot.schur_fwd(w, cam, ranks, v, P), lane)
+
+
+def _sorted_layout(ids, n, ranks=None):
+    """An ObsLayout whose segments come from the twin's torch.sort on the
+    card (seg_layout_reference), not from the layout kernel."""
+    seg_perm, seg_start, chunk_start, arrivals, in_order = ot.seg_layout_reference(ids, n)
+    return ot.ObsLayout(rank_start=None, seg_perm=seg_perm, seg_start=seg_start,
+                        chunk_start=chunk_start,
+                        seg_ranks=None if ranks is None else ranks[seg_perm.long()],
+                        in_seg_order=in_order, arrivals=arrivals)
+
+
+def _layout_equal(got, want, what):
+    for g, w, part in zip(got, want, ("seg_perm", "seg_start", "chunk_start", "arrivals",
+                                      "in_order")):
+        assert g.dtype == torch.int32 and g.device.type == "cuda", (what, part)
+        assert torch.equal(g, w), (what, part)
+
+
+@pytest.mark.parametrize("case", range(len(layout_cases())), ids=[c[0] for c in layout_cases()])
+def test_seg_layout_kernel_bit_equal_to_twin_and_numpy(dev, case):
+    """The layout kernel (csrc/ba_layout.cu) on tests/torch_layout_cases.py's
+    edge cases: one launch, bit-equal to its torch.sort twin on the card and
+    to numpy's stable argsort; the same bits on a repeat."""
+    name, ids_np, n = layout_cases()[case]
+    ids = torch.as_tensor(ids_np, device=dev)
+    before = ot.LAUNCHES["seg_layout"]
+    got = ot.seg_layout(ids, n)
+    again = ot.seg_layout(ids, n)
+    torch.cuda.synchronize()
+    assert ot.LAUNCHES["seg_layout"] == before + 2
+    _layout_equal(got, ot.seg_layout_reference(ids, n), name)
+    _layout_equal(again, got, f"{name} (repeat)")
+    for g, w in zip(got, numpy_layout(ids_np, n)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("n", [32767, 32768, 40000])
+def test_seg_layout_at_the_largest_segment_counts(dev, n):
+    """n up to LAYOUT_MAX_N = 32,768 takes the kernel (one warp a block,
+    128 KB of shared offsets), bit-equal to the twin on 200,003 ids with
+    every segment hit and ids outside [0, n); above it obs_layout takes the
+    twin's sort on the card (no kernel launch, no host read) and seg_layout
+    refuses."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    ids = torch.randint(-5, n + 5, (200_003,), generator=gen, device=dev, dtype=torch.int32)
+    ids[:n] = torch.arange(n, device=dev, dtype=torch.int32)
+    want = ot.seg_layout_reference(ids, n)
+    before = ot.LAUNCHES["seg_layout"]
+    if n <= ot.LAYOUT_MAX_N:
+        _layout_equal(ot.seg_layout(ids, n), want, f"n={n}")
+    else:
+        with pytest.raises(ValueError):
+            ot.seg_layout(ids, n)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lay = ot.obs_layout(ids, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ot.LAUNCHES["seg_layout"] == before + 2 * (n <= ot.LAYOUT_MAX_N)
+    _layout_equal((lay.seg_perm, lay.seg_start, lay.chunk_start, lay.arrivals, lay.in_seg_order),
+                  want, f"obs_layout n={n}")
+
+
+@pytest.mark.parametrize("shape", list(_ENGINE_SHAPES))
+def test_seg_layout_kernel_on_the_ba_tables(engine_tables, shape):
+    """The layouts of the BA path's tables (the 200-view padded and the
+    500-camera tables), cameras and one group: the fixture's layouts, built
+    by the kernel, bit-equal to the twin's; the rank parts as before."""
+    t = engine_tables[shape]
+    cam, ranks = t["args"][3], t["args"][5]
+    for ids, n, lay in ((cam, t["C"], t["layout"]), (t["grp"], 1, t["grp_layout"])):
+        want = ot.seg_layout_reference(ids, n)
+        _layout_equal((lay.seg_perm, lay.seg_start, lay.chunk_start, lay.arrivals,
+                       lay.in_seg_order), want, f"{shape} n={n}")
+        assert torch.equal(lay.seg_ranks, ranks[want[0].long()])
+        assert torch.equal(lay.rank_start, torch.searchsorted(
+            ranks, torch.arange(t["P"] + 1, device="cuda", dtype=torch.int32), out_int32=True))
+    assert not bool(t["layout"].in_seg_order) and bool(t["grp_layout"].in_seg_order)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [6, 7, 9])
+@pytest.mark.parametrize("ids", ["cameras", "one group"])
+@pytest.mark.parametrize("shape", list(_ENGINE_SHAPES))
+def test_sublane_entries_make_no_host_read(engine_tables, shape, ids, d, w_dtype):
+    """segsum_table (k = 12 d) and schur_bwd run under
+    torch.cuda.set_sync_debug_mode("error") (a host read raises), each
+    bit-equal to its _t call through a layout from the twin's torch.sort,
+    and within 4x the float32 twin's error against the float64 twin; the
+    given layout's arrival counters are left at zero."""
+    t = engine_tables[shape]
+    ranks = t["args"][5]
+    idx, n = (t["args"][3], t["C"]) if ids == "cameras" else (t["grp"], 1)
+    gen = torch.Generator(device="cuda").manual_seed(30 + d)
+    O = idx.shape[0]
+    vals = torch.randn((O, 12 * d), generator=gen, device="cuda")
+    w = torch.randn((O, 3 * d), generator=gen, device="cuda").to(w_dtype)
+    z = torch.randn((t["P"], 3), generator=gen, device="cuda")
+    ot.segsum_table(vals, idx, n)
+    ot.schur_bwd(w, idx, ranks, z, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ot.segsum_table(vals, idx, n), ot.schur_bwd(w, idx, ranks, z, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    lay = _sorted_layout(idx, n)
+    want = (ot.segsum_table_t(vals.T, idx, n, layout=lay),
+            ot.schur_bwd_t(w.T, idx, ranks, z, n, layout=lay))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not lay.arrivals.any()
+    if shape == "500-camera" and d != 6:
+        return  # the float64 twins of the widest tables add little
+    _oracle_close(got[0], ot.segsum_table_reference(vals, idx, n),
+                  ot.segsum_table_reference(vals.double(), idx, n), f"segsum_table {ids}")
+    _oracle_close(got[1], ot.schur_bwd_reference(w, idx, ranks, z, n),
+                  ot.schur_bwd_reference(w, idx, ranks, z.double(), n), f"schur_bwd {ids}")
 
 
 def test_k2_and_k4_launch_counts_at_path_a(engine_tables):
@@ -1037,6 +1160,39 @@ def test_1000_camera_ba_through_the_kernels_on_card(dev):
     rmse = float(np.sqrt(2 * float(info["final_cost"]) / O))
     assert rmse < 0.8, rmse
     ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(rot), t).cpu().numpy(), centers)
+    assert ate < 0.01, ate
+
+
+def test_200_camera_ba_through_the_kernels_on_card(dev):
+    """tests/test_medium_scale.py's problem (200 cameras, 20,000 points,
+    seed 3, vis_prob 0.25, more than 100k observations, poses perturbed by
+    0.01 and points by 0.02 with numpy seed 0) single-device through
+    _lm_kernels (K2-K4, the camera layout built by the layout kernel) with
+    its BAConfig: rmse under 0.8 px, ATE under 0.01."""
+    from tpusfm_torch.core import lie
+    from tpusfm_torch.utils.synth_scene import orbit_scene
+
+    C, P = 200, 20000
+    s = orbit_scene(n_cams=C, n_points=P, noise_px=0.5, seed=3, arc_deg=350.0, vis_prob=0.25)
+    O = len(s["obs_cam"])
+    assert O > 100_000
+    r = np.random.default_rng(0)
+    prob = dict(intr=np.tile(s["intr"], (C, 1)),
+                cam_rot=(s["aa"] + r.normal(scale=0.01, size=(C, 3))).astype(np.float32),
+                cam_t=(s["t"] + r.normal(scale=0.01, size=(C, 3))).astype(np.float32),
+                cam_mask=np.ones(C, bool),
+                points=(s["points"] + r.normal(scale=0.02, size=(P, 3))).astype(np.float32),
+                point_mask=s["point_valid"], obs_cam=s["obs_cam"], obs_pt=s["obs_pt"],
+                obs_uv=s["obs_uv"], obs_mask=np.ones(O, bool))
+    for name in ot.LAUNCHES:
+        ot.LAUNCHES[name] = 0
+    cfg = tba.BAConfig(max_iters=10, cg_iters=30, obs_chunk=32768)
+    _, rot, t, _, info = tba.bundle_adjust(cfg=cfg, **_ba_args(prob, dev))
+    assert all(ot.LAUNCHES[k] > 0 for k in ("linearize_reduce_radial3_t", "schur_mv_t",
+                                            "schur_bwd_t", "seg_layout")), ot.LAUNCHES
+    rmse = float(np.sqrt(2 * float(info["final_cost"]) / O))
+    assert rmse < 0.8, rmse
+    ate = metrics.ate_rmse(lie.camera_center(lie.so3_exp(rot), t).cpu().numpy(), s["centers"])
     assert ate < 0.01, ate
 
 

@@ -565,7 +565,8 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
         camred = ot.segsum_table_t(torch.cat(camvals, 1).T, obs_cam, C, layout=layout)
         ptvals = torch.cat([torch.einsum("oki,okj->oij", Jp, Jp).reshape(-1, 9),
                             torch.einsum("oki,ok->oi", Jp, r)], 1)
-        ptred = ot.segsum_sorted_t(ptvals.T.contiguous(), ranks, P, layout=layout)
+        # K7 reads the (12, O) view of the row-major table in place.
+        ptred = ot.segsum_sorted_t(ptvals.T, ranks, P, layout=layout)
         if refine:
             grpvals = torch.cat([torch.einsum("oki,okj->oij", Jg, Jg).reshape(-1, E * E),
                                  torch.einsum("oki,ok->oi", Jg, r)], 1)

@@ -39,9 +39,9 @@ constexpr int kThreads = 256;  // every BA kernel runs 256-thread blocks
 constexpr int kWarps = kThreads / 32;
 
 // Makes `device` the calling thread's current device for the life of the
-// scope and restores the previous one after it.  The K2, K3, K4, K5, K8 and K9
-// launchers take it in place of a Python device guard around the call: most
-// calls find `device` current already, which costs one cudaGetDevice.
+// scope and restores the previous one after it.  Every launcher takes it in
+// place of a Python device guard around the call: most calls find `device`
+// current already, which costs one cudaGetDevice.
 struct DeviceScope {
   int prev = -1;
   cudaError_t err = cudaSuccess;

@@ -508,9 +508,10 @@ extern "C" int tpusfm_ba_linearize(int device, const float* camtab, const float*
 // of tpusfm_ba_linearize without the layouts (rows in any order);
 // refine_mask (host, 7 floats) selects refine mode, which also writes
 // grpvalsT (56, O) and wgT (21, O) (null otherwise).  camvalsT (43 or 85,
-// O), ptvalsT (12, O) float32, wcT (18, O) of W's type.  Launches on
-// `stream` and returns the CUDA error code of the launch (0 = success).
-extern "C" int tpusfm_ba_linearize_unreduced(const float* camtab, const float* grptab,
+// O), ptvalsT (12, O) float32, wcT (18, O) of W's type, on device
+// `device`.  Launches on `stream` and returns the CUDA error code of the
+// launch (0 = success).
+extern "C" int tpusfm_ba_linearize_unreduced(int device, const float* camtab, const float* grptab,
                                              const float* pts, const int* obs_cam,
                                              const int* obs_grp, const int* ranks,
                                              const float* uvT, const float* obs_w,
@@ -521,6 +522,8 @@ extern "C" int tpusfm_ba_linearize_unreduced(const float* camtab, const float* g
   if (C <= 0 || G <= 0 || P <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
   const bool refine = refine_mask != nullptr;
   if (refine && (!grpvalsT || !wgT)) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   Tables t{camtab, grptab, pts, obs_cam, obs_grp, ranks, uvT, obs_w, C, G, P, O, huber_delta, {}};
   for (int e = 0; e < 7; ++e) t.mask.m[e] = refine ? refine_mask[e] : 0.f;
   if (refine)

@@ -33,7 +33,12 @@
 // and z[rank] (rank-sorted within a segment) contiguously.  K2's camera
 // pass writes that copy of Wc, K8 gathers it on the unfused path, and a
 // one-group table needs none: its permutation is the identity.  Without
-// it K4 reads through the permutation as before.  K3 avoids it too: its
+// it K4 reads through the permutation, each thread its own rows, two in
+// flight: from a row-major table (the reference's sublane `schur_bwd`) a
+// scattered W row, rank and z row a row, three dependent loads whose
+// latency sets its pace (reading W a warp's 32 rows at a time through
+// shared memory, or first writing W z per row in table order as K3 does,
+// measured slower; PERF.md).  K3 avoids it too: its
 // rank pass, which reads
 // each rank's W rows side by side anyway, goes on to write wz_o = W_o z_r
 // for the rank's rows into a row-major (O, 6) float32 scratch (each lane
@@ -383,35 +388,24 @@ enum WRead { kPermuted = 0, kOrderedLane = 1, kOrderedRow = 2, kPermutedRow = 3 
 // K4's rows in flight per thread.
 constexpr int kBwdRowsInFlight = 2;
 
-// K4: one block per chunk of a segment's rows sums W_o z[rank_o] (D
-// values) and the chunk's last block to arrive adds the segment's chunks
-// (finish_chunk).  Thread t takes the chunk's rows t, t + kThreads, ... in
-// order, kBwdRowsInFlight at a time, whichever way it reaches them, so the
-// permuted and the ordered reads of one table give the same bits.
-template <typename WT, int D, int kRead>
-__global__ void __launch_bounds__(kThreads)
-schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
-                 const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
-                 const int* __restrict__ seg_start, const int* __restrict__ chunk_start, int n,
-                 int O, int chunk_rows, float* __restrict__ part, int* __restrict__ arrivals,
-                 float* __restrict__ out) {
+// K4's rows [begin, end) of a chunk for thread t: rows begin + t,
+// begin + t + kThreads, ... in order, kBwdRowsInFlight at a time, each
+// thread loading its own rows' W values; kPerm reaches row i's column and
+// rank through seg_perm[i], else at i.
+template <typename WT, int D, bool kPerm, bool kRowMajor>
+__device__ __forceinline__ void bwd_rows_direct(const WT* __restrict__ wT,
+                                                const int* __restrict__ ranks,
+                                                const float* __restrict__ ztab, int Pz,
+                                                const int* __restrict__ seg_perm, int O, int begin,
+                                                int end, float (&acc)[D]) {
   constexpr int U = kBwdRowsInFlight;
-  constexpr bool kPerm = kRead == kPermuted || kRead == kPermutedRow;
-  constexpr bool kRowMajor = kRead == kOrderedRow || kRead == kPermutedRow;
-  __shared__ float sums[D];
-  zero_empty_segment<D>(chunk_start, n, out);
-  ChunkRows ch;
-  if (!chunk_rows_of(seg_start, chunk_start, n, chunk_rows, blockIdx.x, ch)) return;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int i0 = ch.begin + threadIdx.x; i0 < ch.end; i0 += kThreads * U) {
+  for (int i0 = begin + threadIdx.x; i0 < end; i0 += kThreads * U) {
     int o[U], r[U];
     float w[U][3 * D];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
-      o[u] = i >= ch.end ? -1 : kPerm ? __ldg(seg_perm + i) : i;
+      o[u] = i >= end ? -1 : kPerm ? __ldg(seg_perm + i) : i;
       r[u] = o[u] < 0 ? -1 : __ldg(ranks + o[u]);
 #pragma unroll
       for (int k = 0; k < 3 * D; ++k)
@@ -428,32 +422,61 @@ schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
         acc[d] += w[u][d * 3] * z0 + w[u][d * 3 + 1] * z1 + w[u][d * 3 + 2] * z2;
     }
   }
+}
+
+// K4: one block per chunk of a segment's rows sums W_o z[rank_o] (D
+// values) and the chunk's last block to arrive adds the segment's chunks
+// (finish_chunk).  Thread t takes the chunk's rows t, t + kThreads, ... in
+// order, whichever way it reaches them, so every read of one table gives
+// the same bits.  The permuted reads look at the layout's in_order flag
+// (device memory, null for none): where it is set, seg_perm is the
+// identity and the kernel takes the ordered read of the same table, with
+// no host read to choose it.
+template <typename WT, int D, int kRead>
+__global__ void __launch_bounds__(kThreads)
+schur_bwd_kernel(const WT* __restrict__ wT, const int* __restrict__ ranks,
+                 const float* __restrict__ ztab, int Pz, const int* __restrict__ seg_perm,
+                 const int* __restrict__ seg_start, const int* __restrict__ chunk_start,
+                 const int* __restrict__ in_order, int n, int O, int chunk_rows,
+                 float* __restrict__ part, int* __restrict__ arrivals, float* __restrict__ out) {
+  constexpr bool kPerm = kRead == kPermuted || kRead == kPermutedRow;
+  constexpr bool kRowMajor = kRead == kOrderedRow || kRead == kPermutedRow;
+  __shared__ float sums[D];
+  zero_empty_segment<D>(chunk_start, n, out);
+  ChunkRows ch;
+  if (!chunk_rows_of(seg_start, chunk_start, n, chunk_rows, blockIdx.x, ch)) return;
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  if (!kPerm || (in_order != nullptr && __ldg(in_order) != 0))
+    bwd_rows_direct<WT, D, false, kRowMajor>(wT, ranks, ztab, Pz, seg_perm, O, ch.begin, ch.end,
+                                             acc);
+  else
+    bwd_rows_direct<WT, D, true, kRowMajor>(wT, ranks, ztab, Pz, seg_perm, O, ch.begin, ch.end,
+                                            acc);
   block_sum<D>(acc, sums);
   finish_chunk<D>(sums, chunk_start, ch.seg, blockIdx.x, part, arrivals, out);
 }
 
 template <typename WT, int D>
 int launch_bwd_d(int read, const void* wT, const int* ranks, const float* ztab, int Pz,
-                 const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
-                 int n_chunks, int chunk_rows, float* part, int* arrivals, float* out,
-                 cudaStream_t stream) {
+                 const int* seg_perm, const int* seg_start, const int* chunk_start,
+                 const int* in_order, int n, int O, int n_chunks, int chunk_rows, float* part,
+                 int* arrivals, float* out, cudaStream_t stream) {
   const WT* w = static_cast<const WT*>(wT);
+#define TPUSFM_BWD_LAUNCH(READ)                                                             \
+  schur_bwd_kernel<WT, D, READ><<<n_chunks, kThreads, 0, stream>>>(                         \
+      w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, in_order, n, O, chunk_rows, part, \
+      arrivals, out)
   if (read == kPermuted)
-    schur_bwd_kernel<WT, D, kPermuted><<<n_chunks, kThreads, 0, stream>>>(
-        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
-        out);
+    TPUSFM_BWD_LAUNCH(kPermuted);
   else if (read == kOrderedLane)
-    schur_bwd_kernel<WT, D, kOrderedLane><<<n_chunks, kThreads, 0, stream>>>(
-        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
-        out);
+    TPUSFM_BWD_LAUNCH(kOrderedLane);
   else if (read == kOrderedRow)
-    schur_bwd_kernel<WT, D, kOrderedRow><<<n_chunks, kThreads, 0, stream>>>(
-        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
-        out);
+    TPUSFM_BWD_LAUNCH(kOrderedRow);
   else
-    schur_bwd_kernel<WT, D, kPermutedRow><<<n_chunks, kThreads, 0, stream>>>(
-        w, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, n, O, chunk_rows, part, arrivals,
-        out);
+    TPUSFM_BWD_LAUNCH(kPermutedRow);
+#undef TPUSFM_BWD_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -476,14 +499,15 @@ int launch_fwd_d(int row_major, const void* wT, const int* ids, const float* vta
 
 template <typename WT>
 int launch_bwd(int D, int read, const void* wT, const int* ranks, const float* ztab, int Pz,
-               const int* seg_perm, const int* seg_start, const int* chunk_start, int n, int O,
-               int n_chunks, int chunk_rows, float* part, int* arrivals, float* out,
-               cudaStream_t stream) {
+               const int* seg_perm, const int* seg_start, const int* chunk_start,
+               const int* in_order, int n, int O, int n_chunks, int chunk_rows, float* part,
+               int* arrivals, float* out, cudaStream_t stream) {
   switch (D) {
 #define TPUSFM_BWD_CASE(DD)                                                                   \
   case DD:                                                                                   \
     return launch_bwd_d<WT, DD>(read, wT, ranks, ztab, Pz, seg_perm, seg_start, chunk_start, \
-                                n, O, n_chunks, chunk_rows, part, arrivals, out, stream);
+                                in_order, n, O, n_chunks, chunk_rows, part, arrivals, out,   \
+                                stream);
     TPUSFM_D_CASES(TPUSFM_BWD_CASE)
 #undef TPUSFM_BWD_CASE
     default:
@@ -564,27 +588,28 @@ extern "C" int tpusfm_ba_schur_mv(int device, const void* wT, int w_bf16, const 
 // table order, reached through seg_perm; kOrderedLane and kOrderedRow, wT
 // lane-major or row-major and ranks both already in segment order (column
 // i is row seg_perm[i]).  seg_perm (O),
-// seg_start and chunk_start (n + 1) and arrivals (n, zero, left zero) from
-// ObsLayout, at most n_chunks chunks of chunk_rows rows; part (n_chunks, D)
-// scratch.  Writes out (n, D) on device `device` and returns the CUDA error
-// code of the launch.
+// seg_start and chunk_start (n + 1), in_order (1, or null: the permuted
+// reads then take the ordered one where it is set) and arrivals (n, zero,
+// left zero) from ObsLayout, at most n_chunks chunks of chunk_rows rows;
+// part (n_chunks, D) scratch.  Writes out (n, D) on device `device` and
+// returns the CUDA error code of the launch.
 extern "C" int tpusfm_ba_schur_bwd(int device, const void* wT, int w_bf16, int read, int D,
                                    const int* ranks, const float* ztab, int Pz,
                                    const int* seg_perm, const int* seg_start,
-                                   const int* chunk_start, int* arrivals, int n, int O,
-                                   int n_chunks, int chunk_rows, float* part, float* out,
-                                   cudaStream_t stream) {
+                                   const int* chunk_start, const int* in_order, int* arrivals,
+                                   int n, int O, int n_chunks, int chunk_rows, float* part,
+                                   float* out, cudaStream_t stream) {
   if (n <= 0 || O <= 0 || Pz < 0 || n_chunks < n || chunk_rows <= 0 || D < 1 || D > kMaxD ||
       read < kPermuted || read > kPermutedRow)
     return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   return w_bf16 ? launch_bwd<__nv_bfloat16>(D, read, wT, ranks, ztab, Pz, seg_perm, seg_start,
-                                            chunk_start, n, O, n_chunks, chunk_rows, part,
-                                            arrivals, out, stream)
+                                            chunk_start, in_order, n, O, n_chunks, chunk_rows,
+                                            part, arrivals, out, stream)
                 : launch_bwd<float>(D, read, wT, ranks, ztab, Pz, seg_perm, seg_start,
-                                    chunk_start, n, O, n_chunks, chunk_rows, part, arrivals, out,
-                                    stream);
+                                    chunk_start, in_order, n, O, n_chunks, chunk_rows, part,
+                                    arrivals, out, stream);
 }
 
 // K5.  wT bf16 or f32 with 1 <= D <= 9, lane-major (3D, O) when

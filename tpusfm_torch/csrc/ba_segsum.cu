@@ -160,9 +160,9 @@ segsum_sorted_kernel(const float* __restrict__ vals, int k, int O,
 // when 1, which is first transposed into scratch (O, k); seg_perm (O),
 // seg_start and chunk_start (n + 1) from ObsLayout over the id column, at
 // most n_chunks chunks of chunk_rows rows; part (n_chunks, k) scratch.
-// Writes out (n, k) and returns the CUDA error code of the launches
-// (0 = success).
-extern "C" int tpusfm_ba_segsum_table(const float* vals, int lane_major, int k, int O,
+// Writes out (n, k) on device `device` and returns the CUDA error code of
+// the launches (0 = success).
+extern "C" int tpusfm_ba_segsum_table(int device, const float* vals, int lane_major, int k, int O,
                                       const int* seg_perm, const int* seg_start,
                                       const int* chunk_start, int n, int n_chunks, int chunk_rows,
                                       float* scratch, float* part, float* out,
@@ -170,6 +170,8 @@ extern "C" int tpusfm_ba_segsum_table(const float* vals, int lane_major, int k, 
   if (k <= 0 || O <= 0 || n <= 0 || n_chunks <= 0 || chunk_rows <= 0 ||
       (lane_major && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   cudaError_t err;
   if (lane_major) {
     const dim3 grid((O + 31) / 32, (k + 31) / 32);
@@ -178,9 +180,8 @@ extern "C" int tpusfm_ba_segsum_table(const float* vals, int lane_major, int k, 
     if (err != cudaSuccess) return (int)err;
     vals = scratch;
   }
-  int dev = 0, n_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   if (n_chunks < kFewChunksPerSm * n_sm)
     segsum_rows_chunk_kernel<1024, 8><<<n_chunks, 1024, 0, stream>>>(
@@ -195,12 +196,14 @@ extern "C" int tpusfm_ba_segsum_table(const float* vals, int lane_major, int k, 
 
 // K7.  vals f32: lane-major (k, O) when row_major = 0, row-major (O, k)
 // when 1, both read in place; rank_start (P + 1) from ObsLayout over the
-// sorted ranks.  Writes out (P, k) and returns the CUDA error code of the
-// launch.
-extern "C" int tpusfm_ba_segsum_sorted(const float* vals, int row_major, int k, int O,
+// sorted ranks.  Writes out (P, k) on device `device` and returns the CUDA
+// error code of the launch.
+extern "C" int tpusfm_ba_segsum_sorted(int device, const float* vals, int row_major, int k, int O,
                                        const int* rank_start, int P, float* out,
                                        cudaStream_t stream) {
   if (k <= 0 || O <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   const long long total = (long long)P * k;
   const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
   if (row_major)

@@ -96,21 +96,23 @@ def kernels() -> ctypes.CDLL:
         lib.tpusfm_ba_linearize.restype = ci
         lib.tpusfm_ba_schur_mv.argtypes = [ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp] * 5
         lib.tpusfm_ba_schur_mv.restype = ci
-        lib.tpusfm_ba_schur_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci,
-                                            ci, ci, ci, vp, vp, vp]
+        lib.tpusfm_ba_schur_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, vp,
+                                            ci, ci, ci, ci, vp, vp, vp]
         lib.tpusfm_ba_schur_bwd.restype = ci
         lib.tpusfm_ba_schur_fwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, ci, ci, vp, vp]
         lib.tpusfm_ba_schur_fwd.restype = ci
-        lib.tpusfm_ba_segsum_table.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp,
-                                               vp, vp]
+        lib.tpusfm_ba_segsum_table.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, vp,
+                                               vp, vp, vp]
         lib.tpusfm_ba_segsum_table.restype = ci
-        lib.tpusfm_ba_segsum_sorted.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp]
+        lib.tpusfm_ba_segsum_sorted.argtypes = [ci, vp, ci, ci, ci, vp, ci, vp, vp]
         lib.tpusfm_ba_segsum_sorted.restype = ci
-        lib.tpusfm_ba_linearize_unreduced.argtypes = ([vp] * 9 + [ci] * 4 + [ctypes.c_float, ci]
-                                                      + [vp] * 6)
+        lib.tpusfm_ba_linearize_unreduced.argtypes = ([ci] + [vp] * 9 + [ci] * 4
+                                                      + [ctypes.c_float, ci] + [vp] * 6)
         lib.tpusfm_ba_linearize_unreduced.restype = ci
         lib.tpusfm_ba_gather.argtypes = [ci, vp, ci, ci, vp, ci, vp, vp]
         lib.tpusfm_ba_gather.restype = ci
+        lib.tpusfm_ba_seg_layout.argtypes = [ci, vp, ci, ci, ci, ci, ci, ci] + [vp] * 7
+        lib.tpusfm_ba_seg_layout.restype = ci
         lib.tpusfm_cuda_error_string.argtypes = [ci]
         lib.tpusfm_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

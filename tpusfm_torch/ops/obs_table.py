@@ -26,7 +26,11 @@ for a single-device solve, and of its ops-layer entry points:
   ``linearize_radial3``: K2's per-observation values, not reduced;
 - ``segsum_table``, ``segsum_sorted``, ``schur_fwd`` and ``schur_bwd``: the
   reference's sublane-layout entry points of K6, K7, K5 and K4, on
-  row-major (O, k) tables.
+  row-major (O, k) tables;
+- ``seg_layout``: the segment layout of an id column (a stable counting
+  sort, ``csrc/ba_layout.cu``), which ``obs_layout`` builds on the card with
+  no host read.  It replaces no TPU kernel (the reference's kernels need no
+  sort).
 
 Each wrapper keeps the reference's name, argument order and return
 contract.  For CPU tensors it returns its twin ``<name>_reference``; for
@@ -58,11 +62,12 @@ LIN_CAM_DIM = 21  # per-camera row: [t (3) | R row-major (9) | Jr row-major (9)]
 Z_EPS = 1e-8      # |z| floor of the projection (obs_table.py:1377)
 CHUNK_ROWS = 2048  # rows of a segment one block sums in the two-level segment sums
 MAX_W_ROWS = 9     # K4/K5 take blocks of D <= 9 rows (Brown-T2 intrinsics)
+LAYOUT_MAX_N = 32768  # the largest segment count seg_layout's kernel takes
 
 # Kernel launches (one per wrapper call) since the last reset.
 LAUNCHES = {"linearize_reduce_radial3_t": 0, "schur_mv_t": 0, "schur_bwd_t": 0,
             "schur_fwd_t": 0, "segsum_table_t": 0, "segsum_sorted_t": 0,
-            "gather_table": 0, "gather_sorted": 0, "linearize_radial3_t": 0}
+            "gather_table": 0, "gather_sorted": 0, "linearize_radial3_t": 0, "seg_layout": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -151,18 +156,19 @@ class ObsLayout:
     [chunk_start[c], chunk_start[c + 1]) over all segments; one block sums
     one chunk and the chunks of a segment are then added in order.
     seg_ranks (O,) int32: the ranks in segment order, ranks[seg_perm] (when
-    built with ranks).  in_seg_order: seg_perm is the identity (one segment
-    holds every row, as one intrinsic group does), so the table's own
-    columns are already in segment order.  arrivals (n,) int32: the
-    per-segment counters of the one-launch chunk finish (csrc/ba_common.cuh),
-    zero, and left zero by every call; two calls on one layout must not run
-    on two streams at once."""
+    built with ranks).  in_seg_order (1,) int32 on the table's device: 1
+    when seg_perm is the identity (one segment holds every row, as one
+    intrinsic group does), so the table's own columns are already in
+    segment order; K4 reads it on the device.  arrivals (n,)
+    int32: the per-segment counters of the one-launch chunk finish
+    (csrc/ba_common.cuh), zero, and left zero by every call; two calls on
+    one layout must not run on two streams at once."""
     rank_start: torch.Tensor | None
     seg_perm: torch.Tensor
     seg_start: torch.Tensor
     chunk_start: torch.Tensor
     seg_ranks: torch.Tensor | None
-    in_seg_order: bool
+    in_seg_order: torch.Tensor
     arrivals: torch.Tensor
 
     @property
@@ -180,31 +186,95 @@ def _rank_ranges(ranks: torch.Tensor, p: int) -> torch.Tensor:
     return torch.searchsorted(ranks, q, out_int32=True)
 
 
-def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
-               p: int | None = None) -> ObsLayout:
-    """The layout of a table: the rows of each of the n segments of
-    `seg_ids` (a stable sort keeps each segment's rows in increasing order)
-    and, when `ranks` (rank-sorted) is given, the ranks in segment order and,
-    with p, the row range of each of p ranks."""
-    i = seg_ids.to(torch.int32)
+def seg_layout_reference(ids: torch.Tensor, n: int):
+    """Plain twin of the layout kernel: ids (O,) -> (seg_perm (O,),
+    seg_start (n + 1,), chunk_start (n + 1,), arrivals (n,) zero,
+    in_order (1,)), int32 on the ids' device (see ObsLayout; every id
+    outside [0, n) counts as n).  A stable sort of the ids; it reads
+    nothing to the host."""
+    i = ids.to(torch.int32)
     dev = i.device
     key = torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
     key_s, perm = torch.sort(key, stable=True)
     q = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    rank_start = seg_ranks = None
-    if ranks is not None:
-        ranks = ranks.to(torch.int32).contiguous()
-        seg_ranks = ranks[perm]
-        if p is not None:
-            rank_start = _rank_ranges(ranks, p)
     seg_start = torch.searchsorted(key_s, q).to(torch.int32)
     n_chunks = (seg_start[1:] - seg_start[:-1] + CHUNK_ROWS - 1) // CHUNK_ROWS
     chunk_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                              torch.cumsum(n_chunks, 0, dtype=torch.int32)])
-    return ObsLayout(rank_start=rank_start, seg_perm=perm.to(torch.int32), seg_start=seg_start,
-                     chunk_start=chunk_start, seg_ranks=seg_ranks,
-                     in_seg_order=torch.equal(key_s, key),
-                     arrivals=torch.zeros(n, dtype=torch.int32, device=dev))
+    return (perm.to(torch.int32), seg_start, chunk_start,
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            (key_s == key).all().to(torch.int32).reshape(1))
+
+
+# The layout kernel's blocks (csrc/ba_layout.cu): W warps a block, so that
+# W x (n + 1) shared ints stay within _LAYOUT_SMEM bytes (one warp may take
+# more), each over a multiple of _LAYOUT_WARP_ROWS rows, at least (n + 1)
+# rows a block so that the per-block counts are no more than the rows; the
+# block's tile is staged in shared memory where it fits in _LAYOUT_STAGED.
+_LAYOUT_SMEM = 48 * 1024
+_LAYOUT_WARP_ROWS = 512
+_LAYOUT_STAGED = 160 * 1024
+
+
+def _layout_plan(n: int, O: int) -> tuple[int, int, int, bool]:
+    """(warps a block, rows a warp, blocks, tile staged) of the layout
+    kernel."""
+    m = n + 1
+    warps = max(1, min(8, _LAYOUT_SMEM // (4 * m)))
+    warp_rows = _LAYOUT_WARP_ROWS * max(1, -(-m // (warps * _LAYOUT_WARP_ROWS)))
+    tile_rows = warps * warp_rows
+    staged = 4 * ((warps + 1) * m + 2 * tile_rows) <= _LAYOUT_STAGED
+    return warps, warp_rows, -(-O // tile_rows), staged
+
+
+def seg_layout(ids: torch.Tensor, n: int):
+    """The segment layout of an id column: ids (O,) -> (seg_perm (O,),
+    seg_start (n + 1,), chunk_start (n + 1,), arrivals (n,) zero,
+    in_order (1,)) int32 (see ObsLayout), by the kernel of
+    csrc/ba_layout.cu (three launches, no host read) for n <= LAYOUT_MAX_N;
+    bit-equal to the twin, a stable sort."""
+    if not _dispatch("seg_layout", ids):
+        return seg_layout_reference(ids, n)
+    if ids.dim() != 1:
+        raise ValueError(f"seg_layout: ids must be (O,), got {tuple(ids.shape)}")
+    if not 0 <= n <= LAYOUT_MAX_N:
+        raise ValueError(f"seg_layout: 0 to {LAYOUT_MAX_N} segments, got {n}")
+    ids = _i32(ids)
+    dev, O, m = ids.device, ids.shape[0], n + 1
+    warps, warp_rows, tiles, staged = _layout_plan(n, O)
+    buf = torch.empty(O + 3 * m + m * (tiles + 1), dtype=torch.int32, device=dev)
+    seg_perm, seg_start, chunk_start, arrivals, in_order, scratch = buf.split(
+        [O, m, m, n, 1, m * (tiles + 1)])
+    lib = cuda_build.kernels()
+    err = lib.tpusfm_ba_seg_layout(dev.index, ids.data_ptr(), O, n, warps, warp_rows, int(staged),
+                                   CHUNK_ROWS, scratch.data_ptr(), seg_perm.data_ptr(),
+                                   seg_start.data_ptr(), chunk_start.data_ptr(),
+                                   arrivals.data_ptr(), in_order.data_ptr(), _raw_stream(dev))
+    cuda_build.check(lib, err, "seg_layout launch")
+    LAUNCHES["seg_layout"] += 1
+    return seg_perm, seg_start, chunk_start, arrivals, in_order
+
+
+def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
+               p: int | None = None) -> ObsLayout:
+    """The layout of a table: the rows of each of the n segments of
+    `seg_ids` (each segment's rows in increasing order: seg_layout) and,
+    when `ranks` (rank-sorted) is given, the ranks in segment order and,
+    with p, the row range of each of p ranks.  On the card nothing is read
+    to the host; above LAYOUT_MAX_N segments the segments come from the
+    twin's stable sort on the card."""
+    cuda = seg_ids.device.type == "cuda"
+    seg_perm, seg_start, chunk_start, arrivals, in_order = (
+        seg_layout_reference(seg_ids, n) if cuda and n > LAYOUT_MAX_N else seg_layout(seg_ids, n))
+    rank_start = seg_ranks = None
+    if ranks is not None:
+        ranks = _i32(ranks)
+        seg_ranks = ranks.index_select(0, seg_perm)
+        if p is not None:
+            rank_start = _rank_ranges(ranks, p)
+    return ObsLayout(rank_start=rank_start, seg_perm=seg_perm, seg_start=seg_start,
+                     chunk_start=chunk_start, seg_ranks=seg_ranks, in_seg_order=in_order,
+                     arrivals=arrivals)
 
 
 # ---------------------------------------------------------------------------
@@ -500,9 +570,9 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _raw_stream(dev: torch.device) -> int:
-    """The cudaStream_t of `dev`'s current stream, for the launchers that
-    take their device and set it themselves (K2, K3, K4, K5, K8, K9): no Stream
-    object and no Python device guard around the call."""
+    """The cudaStream_t of `dev`'s current stream, for the launchers, which
+    take their device and set it themselves: no Stream object and no Python
+    device guard around the call."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
@@ -523,7 +593,9 @@ def _layout_for(layout, seg_ids, n, ranks, p, need_ranks: bool,
         _check_shape("layout.seg_start", layout.seg_start, (n + 1,))
         _check_shape("layout.chunk_start", layout.chunk_start, (n + 1,))
         _check_shape("layout.arrivals", layout.arrivals, (n,))
-        parts += (layout.seg_perm, layout.seg_start, layout.chunk_start, layout.arrivals)
+        _check_shape("layout.in_seg_order", layout.in_seg_order, (1,))
+        parts += (layout.seg_perm, layout.seg_start, layout.chunk_start, layout.arrivals,
+                  layout.in_seg_order)
     if need_ranks:
         if layout.rank_start is None:
             raise ValueError("layout has no rank_start; build it with ranks and p")
@@ -670,13 +742,11 @@ def linearize_radial3_t(camtab, grptab, pts_rank, obs_cam, obs_grp, ranks, obs_u
         mask = (ctypes.c_float * 7)(*(float(m) for m in refine_mask))
     ptrs = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
     lib = cuda_build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpusfm_ba_linearize_unreduced(
-            camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(), grp.data_ptr(),
-            rk.data_ptr(), uvT.data_ptr(), w.data_ptr(),
-            None if mask is None else ctypes.addressof(mask), C, G, P, O, float(huber_delta),
-            int(wdt == torch.bfloat16), *ptrs, stream)
+    err = lib.tpusfm_ba_linearize_unreduced(
+        dev.index, camtab.data_ptr(), grptab.data_ptr(), pts.data_ptr(), cam.data_ptr(),
+        grp.data_ptr(), rk.data_ptr(), uvT.data_ptr(), w.data_ptr(),
+        None if mask is None else ctypes.addressof(mask), C, G, P, O, float(huber_delta),
+        int(wdt == torch.bfloat16), *ptrs, _raw_stream(dev))
     cuda_build.check(lib, err, "linearize_radial3_t launch")
     LAUNCHES["linearize_radial3_t"] += 1
     return tuple(outs)
@@ -752,9 +822,10 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
     (column i is column layout.seg_perm[i] of wT), lane-major or the (3D, O)
     view of a row-major (O, 3D) table (segsum_lane_major), bf16 or f32; the
     layout must carry seg_ranks.  With it, or when the layout's rows are in
-    segment order already (in_seg_order), the kernel reads W and the ranks
-    in order instead of through the permutation; both reads give the same
-    bits."""
+    segment order already (in_seg_order, which the kernel reads on the
+    device), the kernel reads W and the ranks in order instead of through
+    the permutation; both reads give the same bits.  Nothing is read to the
+    host, with a layout or without one (the call then builds it)."""
     if w_seg is not None and (layout is None or layout.seg_ranks is None):
         raise ValueError("schur_bwd_t: w_seg needs the layout it is ordered by, built with ranks")
     if not _dispatch("schur_bwd_t", wT, obs_cam, idx_sorted, ztab,
@@ -782,22 +853,19 @@ def schur_bwd_t(wT, obs_cam, idx_sorted, ztab, n: int, *, layout: ObsLayout | No
         if w_seg.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"schur_bwd_t: w_seg must be bfloat16 or float32, got {w_seg.dtype}")
         read = _K4_ORDERED_LANE if segsum_lane_major(w_seg, "schur_bwd_t") else _K4_ORDERED_ROW
-        w, rk = w_seg, _i32(lay.seg_ranks)
+        w, rk, in_order = w_seg, _i32(lay.seg_ranks), None
     else:
-        lane = segsum_lane_major(wT, "schur_bwd_t")
-        if lay.in_seg_order:
-            read = _K4_ORDERED_LANE if lane else _K4_ORDERED_ROW
-        else:
-            read = _K4_PERMUTED if lane else _K4_PERMUTED_ROW
-        w, rk = wT, _i32(idx_sorted)
+        # The permuted reads take the ordered one where in_seg_order is set.
+        read = _K4_PERMUTED if segsum_lane_major(wT, "schur_bwd_t") else _K4_PERMUTED_ROW
+        w, rk, in_order = wT, _i32(idx_sorted), lay.in_seg_order.data_ptr()
     out = torch.empty((n, D), dtype=torch.float32, device=z.device)
     part = torch.empty((lay.chunk_bound, D), dtype=torch.float32, device=z.device)
     lib = cuda_build.kernels()
     err = lib.tpusfm_ba_schur_bwd(
         z.device.index, w.data_ptr(), int(w.dtype == torch.bfloat16), read, D, rk.data_ptr(),
         z.data_ptr(), Pz, lay.seg_perm.data_ptr(), lay.seg_start.data_ptr(),
-        lay.chunk_start.data_ptr(), lay.arrivals.data_ptr(), n, O, lay.chunk_bound, CHUNK_ROWS,
-        part.data_ptr(), out.data_ptr(), _raw_stream(z.device))
+        lay.chunk_start.data_ptr(), in_order, lay.arrivals.data_ptr(), n, O, lay.chunk_bound,
+        CHUNK_ROWS, part.data_ptr(), out.data_ptr(), _raw_stream(z.device))
     cuda_build.check(lib, err, "schur_bwd_t launch")
     LAUNCHES["schur_bwd_t"] += 1
     return out
@@ -879,13 +947,11 @@ def segsum_table_t(valsT, idx, n: int, *, layout: ObsLayout | None = None):
     part = torch.empty((lay.chunk_bound, k), dtype=torch.float32, device=dev)
     scratch = torch.empty((O, k), dtype=torch.float32, device=dev) if lane_major else None
     lib = cuda_build.kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpusfm_ba_segsum_table(
-            vals.data_ptr(), int(lane_major), k, O, lay.seg_perm.data_ptr(),
-            lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), n, lay.chunk_bound, CHUNK_ROWS,
-            None if scratch is None else scratch.data_ptr(), part.data_ptr(), out.data_ptr(),
-            stream)
+    err = lib.tpusfm_ba_segsum_table(
+        dev.index, vals.data_ptr(), int(lane_major), k, O, lay.seg_perm.data_ptr(),
+        lay.seg_start.data_ptr(), lay.chunk_start.data_ptr(), n, lay.chunk_bound, CHUNK_ROWS,
+        None if scratch is None else scratch.data_ptr(), part.data_ptr(), out.data_ptr(),
+        _raw_stream(dev))
     cuda_build.check(lib, err, "segsum_table_t launch")
     LAUNCHES["segsum_table_t"] += 1
     return out
@@ -909,12 +975,11 @@ def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = Non
     row_major = not vals.is_contiguous() and vals.stride() == (1, k)
     if not row_major:
         vals = vals.contiguous()
-    out = torch.empty((p, k), dtype=torch.float32, device=vals.device)
+    dev = vals.device
+    out = torch.empty((p, k), dtype=torch.float32, device=dev)
     lib = cuda_build.kernels()
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.tpusfm_ba_segsum_sorted(vals.data_ptr(), int(row_major), k, O,
-                                          rank_start.data_ptr(), p, out.data_ptr(), stream)
+    err = lib.tpusfm_ba_segsum_sorted(dev.index, vals.data_ptr(), int(row_major), k, O,
+                                      rank_start.data_ptr(), p, out.data_ptr(), _raw_stream(dev))
     cuda_build.check(lib, err, "segsum_sorted_t launch")
     LAUNCHES["segsum_sorted_t"] += 1
     return out
@@ -928,7 +993,8 @@ def segsum_sorted_t(valsT, idx_sorted, p: int, *, layout: ObsLayout | None = Non
 def segsum_table(vals, idx, n: int):
     """K6 on a row-major table: vals (O, D), idx (O,) in any order -> (n, D)
     float32 sums by id; ids outside [0, n) are dropped.  K6 reads the (D, O)
-    view of the table in place."""
+    view of the table in place, through the layout the call builds
+    (seg_layout); nothing is read to the host."""
     if not _dispatch("segsum_table", vals, idx):
         return segsum_table_reference(vals, idx, n)
     return segsum_table_t(_f32(vals).T, idx, n)
@@ -959,7 +1025,9 @@ def schur_bwd(w_flat, obs_cam, idx_sorted, ztab, n: int):
     """K4 on a row-major coupling table: w_flat (O, 3D) bf16/f32,
     idx_sorted (O,) ranks into ztab (Pz, 3), obs_cam (O,) ids -> (n, D) =
     sum over the rows of id c of W_o z[rank_o]; ids outside [0, n) are
-    dropped.  K4 reads the table in place through the id order."""
+    dropped.  K4 reads the table in place through the layout the call
+    builds (seg_layout), a warp's 32 rows at a time; nothing is read to the
+    host."""
     if not _dispatch("schur_bwd", w_flat, obs_cam, idx_sorted, ztab):
         return schur_bwd_reference(w_flat, obs_cam, idx_sorted, ztab, n)
     return schur_bwd_t(w_flat.contiguous().T, obs_cam, idx_sorted, ztab, n)

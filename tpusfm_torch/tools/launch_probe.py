@@ -34,6 +34,19 @@ the cameras and D = 9 on one group), with the calls the BA path makes.
 Where the layout carries `seg_ranks`, K4 on the cameras is also timed on a
 segment-ordered W (lane-major and row-major) and K2 with that copy
 written.  ``--parts 4`` runs this part alone.
+
+Part 5 (``--parts 5``) splits the device time of the sublane entry points
+that build their own layout (``segsum_table``, ``schur_bwd``) into the
+layout's kernels and K6's or K4's, by kernel name, beside their time by
+CUDA events: at path B's cameras (the 500-camera table, K6 at k = 96 and
+K4 at D = 6, bf16 W) and at path A's one group (the 200-view padded table,
+K4 at D = 7), and the layout alone (``obs_layout``) at both.  Then, with
+one layout, K4 alone at path B in its reads, in turns: row-major permuted,
+lane-major permuted and row-major segment-ordered; K7 at the gather path's
+200-view shape and at path B (k = 12) with its input as the BA passed it
+(a lane-major copy) and read in place (the row-major view), in turns; and
+the host us per call of the wrappers of K6, K7 and K2 unreduced at the
+200-view shape.
 """
 
 from __future__ import annotations
@@ -250,6 +263,156 @@ def k2_k4_passes(runs: int = 10) -> None:
             _passes(f"{name} {head}", fn, runs)
 
 
+def _events_ms(fn, runs: int = 20) -> float:
+    """Median CUDA-events time of one call, after two warm-ups, in ms."""
+    import torch
+
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(runs):
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _split(label: str, fn, own: tuple, runs: int = 10) -> dict:
+    """Device us per call of `fn` split into the kernels whose names hold
+    one of `own` and the rest (the layout's), each kernel's recorded time
+    over `runs` calls, beside its events time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .profile_rung import _device_kernels
+
+    ms = _events_ms(fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof)
+    mine = sum(us for name, _, us in rows if any(k in name for k in own)) / runs
+    rest = sum(us for name, _, us in rows if not any(k in name for k in own)) / runs
+    print(f"{label}: events {ms:.4f} ms; device {(mine + rest) / 1e3:.4f} ms = layout "
+          f"{rest / 1e3:.4f} + kernel {mine / 1e3:.4f}")
+    for name, n, us in rows:
+        tag = "kernel" if any(k in name for k in own) else "layout"
+        print(f"  {tag} {us / runs:8.2f} us a call ({n} records)  {name[:80]}")
+    return {"events_ms": ms, "device_ms": (mine + rest) / 1e3, "layout_ms": rest / 1e3,
+            "kernel_ms": mine / 1e3}
+
+
+def _device_call_ms(fn, runs: int = 10) -> float:
+    """torch.profiler's device time of one call of `fn`, in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .profile_rung import _device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for _, _, us in _device_kernels(prof)) / runs / 1e3
+
+
+def _in_turns(label: str, forms: dict, order: tuple) -> None:
+    """Device and events ms of each form of one call, measured in `order`."""
+    res = {k: [] for k in forms}
+    for k in order:
+        res[k].append((_device_call_ms(forms[k]), _events_ms(forms[k])))
+    print(f"{label}, in turns {order} (device ms, events ms):")
+    for k, v in res.items():
+        print(f"  {k:34s} " + "  ".join(f"{d:.4f} / {e:.4f}" for d, e in v))
+
+
+# Kernel-name pieces of K6's and K4's own launches (csrc/ba_segsum.cu,
+# csrc/ba_schur.cu); every other kernel of a sublane call is its layout's.
+_K6 = ("segsum_rows_chunk_kernel", "chunk_finish_kernel")
+_K4 = ("schur_bwd_kernel",)
+
+
+def sublane_split(runs: int = 10, reps: int = 200) -> None:
+    """Part 5 (see the module note)."""
+    import torch
+
+    from ..ops import obs_table as ot
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    (l200, p200, o200), (lb, pb, _) = _shapes()
+    cam, ranks, pad = _pad_engine_table(p200, o200)
+    cam, ranks = cam.to(dev), ranks.to(dev)
+    grp = torch.zeros_like(cam)
+    C, P = p200["intr"].shape[0], p200["points"].shape[0]
+    camb = torch.as_tensor(pb["obs_cam"]).to(torch.int32).to(dev)
+    ranksb = torch.as_tensor(pb["obs_pt"]).to(torch.int32).to(dev)
+    Cb, Pb, Ob = pb["intr"].shape[0], pb["points"].shape[0], camb.shape[0]
+    head = f"path B, cameras (C={Cb} P={Pb} O={Ob})"
+    vals = torch.randn((Ob, 96), generator=gen, device=dev)
+    wb = torch.randn((Ob, 18), generator=gen, device=dev).to(torch.bfloat16)
+    zb = torch.randn((Pb, 3), generator=gen, device=dev)
+    wa = torch.randn((cam.shape[0], 21), generator=gen, device=dev).to(torch.bfloat16)
+    za = torch.randn((P, 3), generator=gen, device=dev)
+    _split(f"K6 sublane segsum_table at {head}, k=96",
+           lambda: ot.segsum_table(vals, camb, Cb), _K6, runs)
+    _split(f"K4 sublane schur_bwd at {head}, D=6 bf16",
+           lambda: ot.schur_bwd(wb, camb, ranksb, zb, Cb), _K4, runs)
+    _split(f"K4 sublane schur_bwd at path A, one group ({l200}: O={cam.shape[0]}), D=7 bf16",
+           lambda: ot.schur_bwd(wa, grp, ranks, za, 1), _K4, runs)
+    _split(f"obs_layout alone at {head}", lambda: ot.obs_layout(camb, Cb), (), runs)
+    _split(f"obs_layout alone at path A, one group", lambda: ot.obs_layout(grp, 1), (), runs)
+    lay = ot.obs_layout(camb, Cb, ranksb, Pb)
+    perm = lay.seg_perm.long()
+    wseg = wb[perm].contiguous()
+    _in_turns(f"K4 alone at {head}, D=6 bf16, one layout", {
+        "row-major permuted": lambda: ot.schur_bwd_t(wb.T, camb, ranksb, zb, Cb, layout=lay),
+        "lane-major permuted": (lambda wl=wb.T.contiguous(): ot.schur_bwd_t(
+            wl, camb, ranksb, zb, Cb, layout=lay)),
+        "row-major segment-ordered": lambda: ot.schur_bwd_t(wb.T, camb, ranksb, zb, Cb,
+                                                            layout=lay, w_seg=wseg.T)},
+        ("row-major permuted", "lane-major permuted", "row-major segment-ordered",
+         "row-major segment-ordered", "lane-major permuted", "row-major permuted"))
+    del vals, wseg
+    lay200 = ot.obs_layout(cam, C, ranks, P)
+    for label, rk, p, lt in ((f"the gather path ({l200})", ranks, P, lay200),
+                             (head, ranksb, Pb, lay)):
+        ptvals = torch.randn((rk.shape[0], 12), generator=gen, device=dev)
+        _in_turns(f"K7 at {label}, k=12", {
+            "copy, then lane-major read": lambda: ot.segsum_sorted_t(
+                ptvals.T.contiguous(), rk, p, layout=lt),
+            "row-major view read in place": lambda: ot.segsum_sorted_t(ptvals.T, rk, p,
+                                                                       layout=lt)},
+            ("copy, then lane-major read", "row-major view read in place",
+             "row-major view read in place", "copy, then lane-major read"))
+    from ..ba import bundle_adjust as tba
+
+    O = cam.shape[0]
+    uv = torch.cat([torch.as_tensor(p200["obs_uv"]), torch.zeros((pad, 2))]).to(dev)
+    w = torch.cat([torch.ones(O - pad), torch.zeros(pad)]).to(dev)
+    ps = torch.as_tensor(np.concatenate([p200["cam_rot"], p200["cam_t"]], 1), device=dev)
+    a2 = (tba.camera_table(ps), torch.as_tensor(p200["intr"], device=dev),
+          torch.as_tensor(p200["points"], device=dev), cam, cam, ranks, uv.T.contiguous(), w)
+    v42 = torch.randn((O, 42), generator=gen, device=dev)
+    v12 = torch.randn((O, 12), generator=gen, device=dev)
+    calls = {"segsum_table_t (k=42, row-major view)":
+             lambda: ot.segsum_table_t(v42.T, cam, C, layout=lay200),
+             "segsum_sorted_t (k=12, row-major view)":
+             lambda: ot.segsum_sorted_t(v12.T, ranks, P, layout=lay200),
+             "linearize_radial3_t (held, bf16 W)":
+             lambda: ot.linearize_radial3_t(*a2, w_dtype="bf16")}
+    print(f"Host us per call at {l200} (median of 7 batches of {reps} calls):")
+    for name, fn in calls.items():
+        print(f"  {name:42s} {_host_us(fn, reps):8.2f} us")
+
+
 def forced_solve_busy_share() -> None:
     """Part 3: the 500-camera kernel-path solve forced to 20 LM iterations
     (chip_smoke.py's "kernels, 20 forced"), once plain for its wall time
@@ -298,9 +461,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("launch_probe: no CUDA device visible to torch")
-    print(torch.cuda.get_device_name(0))
+    import subprocess
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
     parts = {1: lambda: host_steps(32768, args.reps), 2: k3_passes, 3: forced_solve_busy_share,
-             4: k2_k4_passes}
+             4: k2_k4_passes, 5: sublane_split}
     for part in args.parts:
         parts[part]()
     return 0
