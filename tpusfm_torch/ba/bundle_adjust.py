@@ -27,7 +27,10 @@ the per-observation gathers through K8 and K9.  On the CPU,
 chunks of ``obs_chunk`` observations, the table padded to a multiple with
 weight-0 rows as in the reference; the kernel path ignores the field.  The
 LM and CG loops are Python loops that read one convergence flag from the
-device per iteration.
+device per iteration.  The solve, the kernel path's per-solve preparation,
+each linearization, LM step, CG loop and CG product, LM's accept and both
+flag reads run under spans (``utils/spans.py``), which a running profiler
+records and which cost one check of its state otherwise.
 
 ``BAConfig.axis_name`` names a mesh axis (``parallel/mesh.py``): the
 observation table passed in is then this rank's shard, and every
@@ -50,6 +53,7 @@ from ..core import camera as cam
 from ..core import lie
 from ..ops import obs_table as ot
 from ..parallel import mesh as mesh_mod
+from ..utils import spans
 
 POSE_DIM = 6
 INTR_DIM = 7
@@ -218,32 +222,37 @@ def _pcg(matvec, b: dict, apply_M, iters: int, tol: float, aux0=None):
     with aux_p linear in p, and the solver returns (x, sum_i alpha_i
     aux_{p_i}), i.e. aux at the solution without another pass (the kernel
     path gets W^T dc for the point back-substitution this way)."""
-    with_aux = aux0 is not None
-    aux = aux0
-    x = {k: torch.zeros_like(v) for k, v in b.items()}
-    r = dict(b)
-    z = apply_M(r)
-    p = z
-    rz = _tree_vdot(r, z)
-    b2 = torch.clamp(_tree_vdot(b, b), min=1e-30)
-    for _ in range(iters):
-        if not bool(_tree_vdot(r, r) > tol * tol * b2):
-            break
-        Ap = matvec(p)
-        if with_aux:
-            Ap, aux_p = Ap
-        pAp = _tree_vdot(p, Ap)
-        alpha = rz / torch.where(torch.abs(pAp) < 1e-30, torch.full_like(pAp, 1e-30), pAp)
-        x = {k: x[k] + alpha * p[k] for k in x}
-        if with_aux:
-            aux = aux + alpha * aux_p
-        r = {k: r[k] - alpha * Ap[k] for k in r}
+    with spans.span(spans.BA_PCG):
+        with_aux = aux0 is not None
+        aux = aux0
+        x = {k: torch.zeros_like(v) for k, v in b.items()}
+        r = dict(b)
         z = apply_M(r)
-        rz_new = _tree_vdot(r, z)
-        beta = rz_new / torch.where(torch.abs(rz) < 1e-30, torch.full_like(rz, 1e-30), rz)
-        p = {k: z[k] + beta * p[k] for k in p}
-        rz = rz_new
-    return (x, aux) if with_aux else x
+        p = z
+        rz = _tree_vdot(r, z)
+        b2 = torch.clamp(_tree_vdot(b, b), min=1e-30)
+        for _ in range(iters):
+            more = _tree_vdot(r, r) > tol * tol * b2
+            with spans.span(spans.BA_PCG_STOP_READ):
+                more = bool(more)
+            if not more:
+                break
+            with spans.span(spans.BA_PCG_MATVEC):
+                Ap = matvec(p)
+            if with_aux:
+                Ap, aux_p = Ap
+            pAp = _tree_vdot(p, Ap)
+            alpha = rz / torch.where(torch.abs(pAp) < 1e-30, torch.full_like(pAp, 1e-30), pAp)
+            x = {k: x[k] + alpha * p[k] for k in x}
+            if with_aux:
+                aux = aux + alpha * aux_p
+            r = {k: r[k] - alpha * Ap[k] for k in r}
+            z = apply_M(r)
+            rz_new = _tree_vdot(r, z)
+            beta = rz_new / torch.where(torch.abs(rz) < 1e-30, torch.full_like(rz, 1e-30), rz)
+            p = {k: z[k] + beta * p[k] for k in p}
+            rz = rz_new
+        return (x, aux) if with_aux else x
 
 
 # ---------------------------------------------------------------------------
@@ -392,30 +401,36 @@ def _lm_loop(linearize, solve, ps, gi, pts, refine: bool, cfg: BAConfig, max_ite
     at the current damping, linearize the candidate (its cost rides along),
     keep the winner's linearization.  Returns (ps, gi, pts, lambda,
     initial cost, final cost, iterations)."""
-    sys, cost = linearize(ps, gi, pts)
+    with spans.span(spans.BA_LINEARIZE):
+        sys, cost = linearize(ps, gi, pts)
     init_cost = cost
     lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=ps.device)
     done = torch.zeros((), dtype=torch.bool, device=ps.device)
     n_it = 0
     while n_it < max_iters:
-        dc, dg, dp = solve(sys, lam)
+        with spans.span(spans.BA_STEP):
+            dc, dg, dp = solve(sys, lam)
         ps_new = ps + dc
         gi_new = gi + dg if refine else gi
         pts_new = pts + dp
-        sys_new, new_cost = linearize(ps_new, gi_new, pts_new)
-        accept = (new_cost < cost) & ~done
-        ps = torch.where(accept, ps_new, ps)
-        gi = torch.where(accept, gi_new, gi)
-        pts = torch.where(accept, pts_new, pts)
-        sys = {k: torch.where(accept, sys_new[k], sys[k]) for k in sys}
-        cost_out = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
-                          torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
-        rel = torch.abs(cost - cost_out) / torch.clamp(cost, min=1e-12)
-        done = done | (accept & (rel < cfg.converge_rtol))
-        cost = cost_out
+        with spans.span(spans.BA_LINEARIZE):
+            sys_new, new_cost = linearize(ps_new, gi_new, pts_new)
+        with spans.span(spans.BA_LM_ACCEPT):
+            accept = (new_cost < cost) & ~done
+            ps = torch.where(accept, ps_new, ps)
+            gi = torch.where(accept, gi_new, gi)
+            pts = torch.where(accept, pts_new, pts)
+            sys = {k: torch.where(accept, sys_new[k], sys[k]) for k in sys}
+            cost_out = torch.where(accept, new_cost, cost)
+            lam = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
+                              torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
+            rel = torch.abs(cost - cost_out) / torch.clamp(cost, min=1e-12)
+            done = done | (accept & (rel < cfg.converge_rtol))
+            cost = cost_out
         n_it += 1
-        if bool(done):
+        with spans.span(spans.BA_LM_STOP_READ):
+            stop = bool(done)
+        if stop:
             break
     return ps, gi, pts, lam, init_cost, cost, n_it
 
@@ -431,6 +446,13 @@ def camera_table(ps: torch.Tensor) -> torch.Tensor:
     R = lie.so3_exp(ps[:, :3])
     Jr = lie.so3_right_jacobian(ps[:, :3])
     return torch.cat([ps[:, 3:6], R.reshape(C, 9), Jr.reshape(C, 9)], 1)
+
+
+def _fused(cfg: BAConfig, C: int, G: int, E: int) -> bool:
+    """Whether the kernel path linearizes through the fused K2, whose
+    closed-form Jacobians are RADIAL3 (reference :668-669)."""
+    return (cfg.fused_linearize and C <= 2048 and G <= 2048 and E == INTR_DIM
+            and cfg.camera_model in ("auto", "radial3"))
 
 
 def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam,
@@ -455,54 +477,59 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     P = points.shape[0]
     D, E = POSE_DIM, gintr0.shape[-1]
     refine = cfg.refine_intrinsics
-    # K2's closed-form Jacobians are RADIAL3 (reference :668-669).
-    fused = (cfg.fused_linearize and C <= 2048 and G <= 2048 and E == INTR_DIM
-             and cfg.camera_model in ("auto", "radial3"))
-    if cfg.assume_sorted:
-        # Rank IS the point id: no sort, and fractional weights stand.
-        obs_pt = obs_pt.to(torch.int32)
-        ranks = obs_pt
-        rank_to_pt = torch.arange(P, dtype=torch.int32, device=dev)
-        rank_valid = torch.arange(P, device=dev) <= obs_pt[-1]
-        obs_cam = obs_cam.to(torch.int32)
-        obs_grp = obs_grp.to(torch.int32)
-        obs_w = obs_w.to(torch.float32)
-    else:
-        # One stable sort carries the columns; the weight is rebuilt as
-        # binary from the sort key (the reference's contract, :616-621).
-        cam32, grp32 = obs_cam.to(torch.int32), obs_grp.to(torch.int32)
-        if C < 2 ** 15 and G < 2 ** 16:
-            (packed, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = ot.sort_and_rank_payload(
-                obs_pt, obs_w > 0, P, (cam32 * 65536 + grp32, obs_uv[:, 0], obs_uv[:, 1]))
-            obs_cam = packed // 65536
-            obs_grp = packed - obs_cam * 65536
-        else:
-            (obs_cam, obs_grp, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = \
-                ot.sort_and_rank_payload(obs_pt, obs_w > 0, P, (cam32, grp32, obs_uv[:, 0],
-                                                                  obs_uv[:, 1]))
-        obs_w = (ranks < ot.INVALID_RANK).to(torch.float32)
-        obs_uv = torch.stack([uv0, uv1], 1)
-    obs_uvT = obs_uv.T.contiguous()
-    safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
-    layout = ot.obs_layout(obs_cam, C, ranks, P)
-    # K4 reads Wc in camera order (sys["Wc_seg"], written by K2 or gathered
-    # by K8); a one-group Wg is in group order already (in_seg_order).
-    grp_layout = ot.obs_layout(obs_grp, G, ranks) if refine else None
-    wdt = ot._w_torch_dtype(cfg.w_dtype)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    full66 = torch.tensor(ot._FULL66, device=dev)
-    full33 = torch.tensor(ot._FULL33, device=dev)
-    full77 = torch.tensor(ot._FULL77, device=dev)
-    # The per-group sum of camera rows in the self-calibrating matvec, as a
-    # product with this (G, C) 0/1 matrix: index_add_'s float atomics on the
-    # card would add in another order each call.
-    cam_to_grp = (torch.arange(G, device=dev)[:, None] == cam_group[None, :]).to(torch.float32) \
-        if refine else None
+    fused = _fused(cfg, C, G, E)
     ax = cfg.axis_name
     # Shard-local rank spaces differ, so a sharded solve keeps the point side
     # in (replicated) point space (reference :655-665).
     rank_space = ax is None
-    scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
+    with spans.span(spans.BA_PREP):
+        if cfg.assume_sorted:
+            # Rank IS the point id: no sort, and fractional weights stand.
+            obs_pt = obs_pt.to(torch.int32)
+            ranks = obs_pt
+            rank_to_pt = torch.arange(P, dtype=torch.int32, device=dev)
+            rank_valid = torch.arange(P, device=dev) <= obs_pt[-1]
+            obs_cam = obs_cam.to(torch.int32)
+            obs_grp = obs_grp.to(torch.int32)
+            obs_w = obs_w.to(torch.float32)
+        else:
+            # One stable sort carries the columns; the weight is rebuilt as
+            # binary from the sort key (the reference's contract, :616-621).
+            cam32, grp32 = obs_cam.to(torch.int32), obs_grp.to(torch.int32)
+            if C < 2 ** 15 and G < 2 ** 16:
+                (packed, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = \
+                    ot.sort_and_rank_payload(obs_pt, obs_w > 0, P, (cam32 * 65536 + grp32,
+                                                                      obs_uv[:, 0], obs_uv[:, 1]))
+                obs_cam = packed // 65536
+                obs_grp = packed - obs_cam * 65536
+            else:
+                (obs_cam, obs_grp, uv0, uv1), obs_pt, ranks, rank_to_pt, rank_valid = \
+                    ot.sort_and_rank_payload(obs_pt, obs_w > 0, P, (cam32, grp32, obs_uv[:, 0],
+                                                                      obs_uv[:, 1]))
+            obs_w = (ranks < ot.INVALID_RANK).to(torch.float32)
+            obs_uv = torch.stack([uv0, uv1], 1)
+        obs_uvT = obs_uv.T.contiguous()
+        safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
+        layout = ot.obs_layout(obs_cam, C, ranks, P)
+        # K4 reads Wc in camera order (sys["Wc_seg"], written by K2 or gathered
+        # by K8); a one-group Wg is in group order already (in_seg_order).
+        grp_layout = ot.obs_layout(obs_grp, G, ranks) if refine else None
+        wdt = ot._w_torch_dtype(cfg.w_dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        full66 = torch.tensor(ot._FULL66, device=dev)
+        full33 = torch.tensor(ot._FULL33, device=dev)
+        full77 = torch.tensor(ot._FULL77, device=dev)
+        # The per-group sum of camera rows in the self-calibrating matvec, as a
+        # product with this (G, C) 0/1 matrix: index_add_'s float atomics on the
+        # card would add in another order each call.
+        cam_to_grp = (torch.arange(G, device=dev)[:, None] == cam_group[None, :]) \
+            .to(torch.float32) if refine else None
+        scatter_ids = torch.where(rank_valid, rank_to_pt, torch.full_like(rank_to_pt, P)).long()
+        if rank_space:  # points enter rank space once and leave it once
+            pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
+            pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
+        else:
+            pts_state0, pt_upd_state = points, pt_upd
 
     def to_rank(tab_p):
         return torch.where(rank_valid[:, None], tab_p[safe_r2p], zero)
@@ -674,11 +701,6 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             dp = -torch.einsum("pij,pj->pi", Hpp_inv, gp + Wtd) * pt_upd_state
         return d["c"] * upd_c, d["g"] * upd_g if refine else None, dp
 
-    if rank_space:  # points enter rank space once and leave it once
-        pts_state0 = torch.where(rank_valid[:, None], points[safe_r2p], zero)
-        pt_upd_state = torch.where(rank_valid[:, None], pt_upd[safe_r2p], zero)
-    else:
-        pts_state0, pt_upd_state = points, pt_upd
     ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr0,
                                                        pts_state0, refine, cfg, max_iters)
     if rank_space:  # rows of valid ranks go back to their points; the rest keep their input
@@ -722,18 +744,10 @@ def bundle_adjust(
     C = intr.shape[0]
     P = points.shape[0]
     refine = cfg.refine_intrinsics
-    if cam_group is None:
-        cam_group = torch.arange(C, device=dev)
-        G = C
-    else:
-        cam_group = cam_group.long()
-        G = int(n_groups) if n_groups is not None else C
+    G = int(n_groups) if cam_group is not None and n_groups is not None else C
     dense_ok = _dense_eligible(C, G, P, cfg)
     E = intr.shape[-1]
     D = POSE_DIM
-    gintr = torch.zeros((G, E), dtype=intr.dtype, device=dev)
-    gintr[cam_group] = intr
-    refine_m = torch.as_tensor(cfg.refine_mask(E), dtype=intr.dtype, device=dev)
     ax = cfg.axis_name
     mi = cfg.max_iters if max_iters is None else int(max_iters)
     if ax:
@@ -741,126 +755,138 @@ def bundle_adjust(
                             cameras=C, points=P, groups=G, max_iters=mi)
 
     kernels = cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok)
-    if not kernels:
-        obs_cam, obs_pt, obs_uv, obs_mask = _pad_obs(obs_cam, obs_pt, obs_uv, obs_mask,
-                                                     max(cfg.obs_chunk, 1), cfg.assume_sorted)
-    obs_cam = obs_cam.long()
-    obs_pt = obs_pt.long()
-    obs_w = obs_mask.to(torch.float32)
-    obs_grp = cam_group[obs_cam]
+    args = ""
+    if spans.recording():
+        path = ("kernel " + ("fused" if _fused(cfg, C, G, E) else "unfused") if kernels
+                else "dense" if dense_ok else "plain")
+        args = (f"C={C} P={P} O={obs_cam.shape[0]} G={G} path={path} "
+                + ("refine" if refine else "held"))
+    with spans.span(spans.BA_SOLVE, args):
+        cam_group = torch.arange(C, device=dev) if cam_group is None else cam_group.long()
+        gintr = torch.zeros((G, E), dtype=intr.dtype, device=dev)
+        gintr[cam_group] = intr
+        refine_m = torch.as_tensor(cfg.refine_mask(E), dtype=intr.dtype, device=dev)
+        if not kernels:
+            obs_cam, obs_pt, obs_uv, obs_mask = _pad_obs(obs_cam, obs_pt, obs_uv, obs_mask,
+                                                         max(cfg.obs_chunk, 1), cfg.assume_sorted)
+        obs_cam = obs_cam.long()
+        obs_pt = obs_pt.long()
+        obs_w = obs_mask.to(torch.float32)
+        obs_grp = cam_group[obs_cam]
 
-    free = cam_mask if cam_free_mask is None else (cam_mask & cam_free_mask)
-    upd_c = free.to(torch.float32)[:, None]
-    if cfg.fix_first_cam:
-        upd_c = upd_c.clone()
-        upd_c[0] = 0.0
-    pt_upd = point_mask.to(torch.float32)[:, None]
-    grp_w, = _maybe_psum([segment_sum(obs_w, obs_grp, G)], ax)
-    upd_g = (grp_w > 0).to(torch.float32)[:, None] * refine_m[None, :]
+        free = cam_mask if cam_free_mask is None else (cam_mask & cam_free_mask)
+        upd_c = free.to(torch.float32)[:, None]
+        if cfg.fix_first_cam:
+            upd_c = upd_c.clone()
+            upd_c[0] = 0.0
+        pt_upd = point_mask.to(torch.float32)[:, None]
+        grp_w, = _maybe_psum([segment_sum(obs_w, obs_grp, G)], ax)
+        upd_g = (grp_w > 0).to(torch.float32)[:, None] * refine_m[None, :]
 
-    prior_w = None
-    if prior_pos is not None:
-        pw = torch.ones(C, device=dev) if prior_weight is None else prior_weight
-        prior_w = pw * cam_mask.to(torch.float32)
-
-    pose0 = torch.cat([cam_rot, cam_t], dim=-1)
-
-    def linearize(ps, gi, pts):
-        sys = _build_system(ps, gi, pts, refine_m, obs_cam, obs_grp, obs_pt, obs_uv, obs_w,
-                            C, G, cfg)
-        cost = sys.pop("cost")
+        prior_w = None
         if prior_pos is not None:
-            dH, dg, dcost = _prior_terms(ps, prior_pos, prior_w)
-            sys["Hcc"] = sys["Hcc"] + dH
-            sys["gc"] = sys["gc"] + dg
-            cost = cost + dcost
-        return sys, cost
+            pw = torch.ones(C, device=dev) if prior_weight is None else prior_weight
+            prior_w = pw * cam_mask.to(torch.float32)
 
-    def solve(sys, lam):
-        Wc3 = sys["Wc"].reshape(-1, D, 3)
-        Wg3 = sys["Wg"].reshape(-1, E, 3) if refine else None
-        Hcc_d = _damp_blocks(sys["Hcc"], lam)
-        Hpp_inv = _inv3(_damp_blocks(sys["Hpp"], lam))
-        Hgg_d = _damp_blocks(sys["Hgg"], lam) if refine else None
-        Hcg = sys["Hcg"] if refine else None
+        pose0 = torch.cat([cam_rot, cam_t], dim=-1)
 
-        # Reduced rhs: -g + W Hpp^-1 gp.
-        z_o = torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"])[obs_pt]
-        wz = [segment_sum(torch.einsum("oij,oj->oi", Wc3, z_o), obs_cam, C)]
-        if refine:
-            wz.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, z_o), obs_grp, G))
-        wz = _maybe_psum(wz, ax)
-        rhs_c = (-sys["gc"] + wz[0]) * upd_c
-        if refine:
-            rhs_g = (-sys["gg"] + wz[1]) * upd_g
+        def linearize(ps, gi, pts):
+            sys = _build_system(ps, gi, pts, refine_m, obs_cam, obs_grp, obs_pt, obs_uv, obs_w,
+                                C, G, cfg)
+            cost = sys.pop("cost")
+            if prior_pos is not None:
+                dH, dg, dcost = _prior_terms(ps, prior_pos, prior_w)
+                sys["Hcc"] = sys["Hcc"] + dH
+                sys["gc"] = sys["gc"] + dg
+                cost = cost + dcost
+            return sys, cost
 
-        if dense_ok:
-            rhs_flat = torch.cat([rhs_c.reshape(-1), rhs_g.reshape(-1)]) if refine else rhs_c.reshape(-1)
-            dc, dg = _dense_schur_solve(Hcc_d, Hgg_d, Hcg, Hpp_inv, Wc3, Wg3, obs_cam, obs_grp,
-                                        obs_pt, rhs_flat, upd_c, upd_g, cam_group, C, G, refine,
-                                        ax)
+        def solve(sys, lam):
+            Wc3 = sys["Wc"].reshape(-1, D, 3)
+            Wg3 = sys["Wg"].reshape(-1, E, 3) if refine else None
+            Hcc_d = _damp_blocks(sys["Hcc"], lam)
+            Hpp_inv = _inv3(_damp_blocks(sys["Hpp"], lam))
+            Hgg_d = _damp_blocks(sys["Hgg"], lam) if refine else None
+            Hcg = sys["Hcg"] if refine else None
+
+            # Reduced rhs: -g + W Hpp^-1 gp.
+            z_o = torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"])[obs_pt]
+            wz = [segment_sum(torch.einsum("oij,oj->oi", Wc3, z_o), obs_cam, C)]
+            if refine:
+                wz.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, z_o), obs_grp, G))
+            wz = _maybe_psum(wz, ax)
+            rhs_c = (-sys["gc"] + wz[0]) * upd_c
+            if refine:
+                rhs_g = (-sys["gg"] + wz[1]) * upd_g
+
+            if dense_ok:
+                rhs_flat = (torch.cat([rhs_c.reshape(-1), rhs_g.reshape(-1)]) if refine
+                            else rhs_c.reshape(-1))
+                dc, dg = _dense_schur_solve(Hcc_d, Hgg_d, Hcg, Hpp_inv, Wc3, Wg3, obs_cam, obs_grp,
+                                            obs_pt, rhs_flat, upd_c, upd_g, cam_group, C, G, refine,
+                                            ax)
+            else:
+                M_inv_c = _invD(_schur_diag_pose(Hcc_d, Hpp_inv, sys["Wc"], obs_cam, obs_pt, C,
+                                                 max(cfg.obs_chunk, 1), ax))
+                M_inv_g = _invD(Hgg_d) if refine else None
+
+                def apply_M(v):
+                    out = {"c": torch.einsum("cij,cj->ci", M_inv_c, v["c"])}
+                    if refine:
+                        out["g"] = torch.einsum("gij,gj->gi", M_inv_g, v["g"])
+                    return out
+
+                def mv(v):
+                    vc = v["c"] * upd_c
+                    u = torch.einsum("oij,oi->oj", Wc3, vc[obs_cam])
+                    if refine:
+                        vg = v["g"] * upd_g
+                        u = u + torch.einsum("oij,oi->oj", Wg3, vg[obs_grp])
+                    y, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
+                    zz_o = torch.einsum("pij,pj->pi", Hpp_inv, y)[obs_pt]
+                    b = [segment_sum(torch.einsum("oij,oj->oi", Wc3, zz_o), obs_cam, C)]
+                    if refine:
+                        b.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, zz_o), obs_grp, G))
+                    b = _maybe_psum(b, ax)
+                    bc = b[0]
+                    Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc)
+                    if refine:
+                        Hvc = Hvc + torch.einsum("cde,ce->cd", Hcg, vg[cam_group])
+                        bg = b[1]
+                        Hvg = (torch.einsum("gef,gf->ge", Hgg_d, vg)
+                               + segment_sum(torch.einsum("cde,cd->ce", Hcg, vc), cam_group, G))
+                        return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}
+                    return {"c": (Hvc - bc) * upd_c}
+
+                rhs = {"c": rhs_c, "g": rhs_g} if refine else {"c": rhs_c}
+                d = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol)
+                dc = d["c"] * upd_c
+                dg = d["g"] * upd_g if refine else None
+
+            # Back-substitute points: dp = -Hpp^-1 (gp + W^T d).
+            u = torch.einsum("oij,oi->oj", Wc3, dc[obs_cam])
+            if refine:
+                u = u + torch.einsum("oij,oi->oj", Wg3, dg[obs_grp])
+            Wtd, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
+            dp = -torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"] + Wtd) * pt_upd
+            return dc, dg, dp
+
+        if kernels:
+            ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
+                pose0, gintr, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam, obs_grp,
+                obs_pt, obs_uv, obs_w, C, G, cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
         else:
-            M_inv_c = _invD(_schur_diag_pose(Hcc_d, Hpp_inv, sys["Wc"], obs_cam, obs_pt, C,
-                                             max(cfg.obs_chunk, 1), ax))
-            M_inv_g = _invD(Hgg_d) if refine else None
-
-            def apply_M(v):
-                out = {"c": torch.einsum("cij,cj->ci", M_inv_c, v["c"])}
-                if refine:
-                    out["g"] = torch.einsum("gij,gj->gi", M_inv_g, v["g"])
-                return out
-
-            def mv(v):
-                vc = v["c"] * upd_c
-                u = torch.einsum("oij,oi->oj", Wc3, vc[obs_cam])
-                if refine:
-                    vg = v["g"] * upd_g
-                    u = u + torch.einsum("oij,oi->oj", Wg3, vg[obs_grp])
-                y, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
-                zz_o = torch.einsum("pij,pj->pi", Hpp_inv, y)[obs_pt]
-                b = [segment_sum(torch.einsum("oij,oj->oi", Wc3, zz_o), obs_cam, C)]
-                if refine:
-                    b.append(segment_sum(torch.einsum("oij,oj->oi", Wg3, zz_o), obs_grp, G))
-                b = _maybe_psum(b, ax)
-                bc = b[0]
-                Hvc = torch.einsum("cij,cj->ci", Hcc_d, vc)
-                if refine:
-                    Hvc = Hvc + torch.einsum("cde,ce->cd", Hcg, vg[cam_group])
-                    bg = b[1]
-                    Hvg = (torch.einsum("gef,gf->ge", Hgg_d, vg)
-                           + segment_sum(torch.einsum("cde,cd->ce", Hcg, vc), cam_group, G))
-                    return {"c": (Hvc - bc) * upd_c, "g": (Hvg - bg) * upd_g}
-                return {"c": (Hvc - bc) * upd_c}
-
-            rhs = {"c": rhs_c, "g": rhs_g} if refine else {"c": rhs_c}
-            d = _pcg(mv, rhs, apply_M, cfg.cg_iters, cfg.cg_tol)
-            dc = d["c"] * upd_c
-            dg = d["g"] * upd_g if refine else None
-
-        # Back-substitute points: dp = -Hpp^-1 (gp + W^T d).
-        u = torch.einsum("oij,oi->oj", Wc3, dc[obs_cam])
-        if refine:
-            u = u + torch.einsum("oij,oi->oj", Wg3, dg[obs_grp])
-        Wtd, = _maybe_psum([segment_sum(u, obs_pt, P)], ax)
-        dp = -torch.einsum("pij,pj->pi", Hpp_inv, sys["gp"] + Wtd) * pt_upd
-        return dc, dg, dp
-
-    if kernels:
-        ps, gi, pts, lam, init_cost, cost, n_it = _lm_kernels(
-            pose0, gintr, points, refine_m, upd_c, upd_g, pt_upd, cam_group, obs_cam, obs_grp,
-            obs_pt, obs_uv, obs_w, C, G, cfg, mi, prior_pos=prior_pos, prior_w=prior_w)
-    else:
-        ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr, points,
-                                                           refine, cfg, mi)
-    n_obs, = _maybe_psum([torch.sum(obs_mask)], ax)
-    info = {
-        "initial_cost": init_cost,
-        "final_cost": cost,
-        "lambda": lam,
-        "iterations": n_it,
-        "n_obs": n_obs,
-    }
-    return gi[cam_group], ps[:, :3], ps[:, 3:6], pts, info
+            ps, gi, pts, lam, init_cost, cost, n_it = _lm_loop(linearize, solve, pose0, gintr,
+                                                               points, refine, cfg, mi)
+        n_obs, = _maybe_psum([torch.sum(obs_mask)], ax)
+        info = {
+            "initial_cost": init_cost,
+            "final_cost": cost,
+            "lambda": lam,
+            "iterations": n_it,
+            "n_obs": n_obs,
+        }
+        return gi[cam_group], ps[:, :3], ps[:, 3:6], pts, info
 
 
 def bundle_adjust_scene(scene, cfg: BAConfig = BAConfig(), cam_group=None, n_groups=None):
