@@ -1,0 +1,13 @@
+"""prep_ms: the mean completion of the ``tpusfm.ba.prep`` span (a solve's
+sort, rank compaction, segment layouts and rank-space state), from its
+start to the end of the last device work launched inside it, in
+milliseconds; read by ``spansum.per_layer`` from the spans that
+the harness keeps of the traced solves."""
+
+from sfmbench import spansum
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return spansum.per_layer(run.trace.spans).get("prep_ms")

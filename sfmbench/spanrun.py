@@ -1,5 +1,5 @@
 """One traced run of a cell, as ``run.py --trace 1`` makes it, with the
-same trace also reduced by the program's spans (``spansum``).
+spans that the harness read from its trace (``spansum``) laid out whole.
 
     python3 -m sfmbench.spanrun --workload <name> --seed <n> --seconds <s> [--out f.json]
 
@@ -31,34 +31,33 @@ def run(root: Path, workload: str, seed: int, seconds: float, device: str,
     from sfmbench import spansum, tracesum
     from sfmbench.harness import run_cell
 
-    # The harness keeps only tracesum's sums of the profile; reduce the same
-    # profile by span while it still exists.
+    # The harness hands back only the result; keep the summary it read it from.
     got = {}
     plain = tracesum.summarize
 
-    def both(prof):
-        got["spans"] = spansum.summarize(prof)
-        return plain(prof)
+    def keep(prof):
+        got["trace"] = plain(prof)
+        return got["trace"]
 
-    tracesum.summarize = both
+    tracesum.summarize = keep
     try:
         result, _ = run_cell(root, workload, seed, seconds, True, device, t_start)
     finally:
         tracesum.summarize = plain
-    ss = got["spans"]
-    solves = ss.spans.get(spansum.SOLVE)
-    mv = ss.spans.get(spansum.PCG_MATVEC)
+    ts = got["trace"]
+    solves = ts.spans.get(spansum.SOLVE)
+    mv = ts.spans.get(spansum.PCG_MATVEC)
     dev = result["device"]
     return {
         "result": result,
-        "spans": {k: dataclasses.asdict(v) for k, v in ss.spans.items()},
-        "per_layer": spansum.per_layer(ss.spans),
-        "idle_gaps": sorted(ss.gaps.items(), key=lambda kv: -kv[1])[:10],
-        "idle_outside_s": ss.idle_outside_s,
+        "spans": {k: dataclasses.asdict(v) for k, v in ts.spans.items()},
+        "per_layer": spansum.per_layer(ts.spans),
+        "idle_gaps": sorted(ts.gaps.items(), key=lambda kv: -kv[1])[:10],
+        "idle_outside_s": ts.idle_outside_s,
         "agree": {
             "matvecs_per_solve": [mv.n / solves.n if mv and solves else None,
                                   result["metrics"].get("cg_matvecs_per_solve", {}).get("value")],
-            "idle_s": [sum(v.idle_s for v in ss.spans.values()) + ss.idle_outside_s,
+            "idle_s": [sum(v.idle_s for v in ts.spans.values()) + ts.idle_outside_s,
                        dev["window_s"] - dev["busy_s"] if "busy_s" in dev else None],
         },
     }

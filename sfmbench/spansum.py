@@ -1,4 +1,22 @@
-"""Reduce the program's spans in a torch.profiler trace to sums by name.
+"""Reduce a torch.profiler trace of the traced solves to sums: the
+harness's one reader of a profile (``tracesum`` hands on what it returns).
+
+A window of a few solves launches some tens of thousands of kernels; its
+full timeline would be hundreds of megabytes, so only sums leave this
+module.  The window is the span from the first ``sfmbench.solve`` record's
+start to the last one's end (where the trace has none, of the program's
+spans), in the profiler's own clock; each solve ends with a device
+synchronisation.  The device timeline is every device operation but the
+projections of user annotations (``record_function`` scopes, which kineto
+mirrors onto the device as intervals covering what they launched).  From
+it come:
+
+- ``kernels``: launches and device seconds by short kernel name, and
+  ``launches``, every kernel launched (copies and fills not counted);
+- ``busy_s``: the union of device activity inside the window;
+- ``gaps``: the idle gaps summed by label, ``"<innermost span> | <innermost
+  host op>"`` open on the solves' thread at the gap's middle, or the host op
+  alone outside every program span.
 
 The port opens a host record named ``tpusfm.<layer>`` around each layer of
 its bundle adjustment (``tpusfm_torch/utils/spans.py``; the names below
@@ -21,19 +39,19 @@ that ran the traced solves, each span name is reduced to (``SpanSum``):
 - ``idle_s``: seconds of the window in which the device ran nothing while
   the span was the innermost one open.
 
-The device timeline is ``tracesum``'s: every device operation but the
-projections of user annotations, in the window of the ``sfmbench.solve``
-spans (where the trace has none, of the program's spans).  Each idle gap
-is also labelled ``"<innermost span> | <innermost host op>"`` at its
-middle, or by the host op alone outside every program span.
+A torch that keeps no kineto results hands over its events without those
+links: the spans are then left out and the rest is read as above.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import re
 
-from sfmbench.tracesum import NO_OP, SOLVE_SPAN
+SOLVE_SPAN = "sfmbench.solve"
+COPIES = ("Memcpy", "Memset")
+NO_OP = "python between host operations"
 
 PREFIX = "tpusfm."
 SOLVE = "tpusfm.ba.solve"
@@ -59,11 +77,48 @@ class SpanSum:
 
 @dataclasses.dataclass
 class SpanSummary:
-    spans: dict             # span name -> SpanSum
-    idle_outside_s: float   # idle seconds of the window outside every program span
-    busy_s: float
-    window_s: float
-    gaps: dict              # "<span> | <host op>" (or the op alone) -> idle seconds
+    spans: dict = dataclasses.field(default_factory=dict)    # span name -> SpanSum
+    idle_outside_s: float = 0.0  # idle seconds of the window outside every program span
+    busy_s: float = 0.0
+    window_s: float = 0.0
+    gaps: dict = dataclasses.field(default_factory=dict)     # label -> idle seconds
+    kernels: dict = dataclasses.field(default_factory=dict)  # short name -> [launches, seconds]
+    launches: int = 0
+    solves: int = 0              # sfmbench.solve records, which set the window where > 0
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type and argument list (its
+    template arguments stay)."""
+    name = name.replace("(anonymous namespace)", "{anonymous}")
+    depth = 0
+    for i, ch in enumerate(name):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return re.sub(r"^(void|__global__)\s+", "", name.strip()) or "(unnamed)"
+
+
+def _events(prof) -> tuple[list, bool]:
+    """(on the device, name, start ns, end ns, thread, correlation id, linked
+    correlation id, user annotation) of every event, and whether the links
+    are there.  Without kineto results: torch's FunctionEvents (microseconds),
+    no links, the solve records' projections known by name."""
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is not None:
+        return [("CUDA" in str(e.device_type()), e.name(), e.start_ns(), e.end_ns(),
+                 e.start_thread_id(), e.correlation_id(), e.linked_correlation_id(),
+                 e.is_user_annotation()) for e in res.events()], True
+    out = []
+    for e in prof.events():
+        dev = "CUDA" in str(e.device_type)
+        out.append((dev, e.name, int(e.time_range.start * 1e3), int(e.time_range.end * 1e3),
+                    e.thread, 0, 0, dev and e.name == SOLVE_SPAN))
+    return out, False
 
 
 def _innermost(spans: list, w0: int, w1: int) -> list:
@@ -92,29 +147,35 @@ def _innermost(spans: list, w0: int, w1: int) -> list:
 
 
 def summarize(prof) -> SpanSummary:
-    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-    if res is None:
-        raise RuntimeError("the profile has no kineto results")
+    events, linked = _events(prof)
     device, host, frontend, solves = [], [], {}, []
-    for e in res.events():
-        name, s, t, th = e.name(), e.start_ns(), e.end_ns(), e.start_thread_id()
-        if "CUDA" in str(e.device_type()):
-            if not e.is_user_annotation():  # an annotation's image, not device work
-                device.append((s, t, e.linked_correlation_id()))
+    for dev, name, s, t, th, corr, link, annotation in events:
+        if dev:
+            if not annotation:  # an annotation's image, not device work
+                device.append((s, t, link, name))
             continue
-        if e.linked_correlation_id() == 0:  # an op or a record, which device work links to
-            frontend[e.correlation_id()] = (s, th)
+        if linked and link == 0:  # an op or a record, which device work links to
+            frontend[corr] = (s, th)
         if name == SOLVE_SPAN:
             solves.append((s, t, th))
         else:
             host.append((s, t, name, th))
-    prog = [h for h in host if h[2].startswith(PREFIX)]
+
+    kernels: dict = {}
+    for s, t, _, name in device:
+        if not name.startswith(COPIES):
+            k = kernels.setdefault(short_name(name), [0, 0.0])
+            k[0] += 1
+            k[1] += (t - s) * 1e-9
+    launches = sum(k[0] for k in kernels.values())
+
+    prog = [h for h in host if linked and h[2].startswith(PREFIX)]
     if solves:
         w0, w1, main = min(s for s, _, _ in solves), max(t for _, t, _ in solves), solves[0][2]
     elif prog:
         w0, w1, main = min(h[0] for h in prog), max(h[1] for h in prog), prog[0][3]
     else:
-        return SpanSummary({}, 0.0, 0.0, 0.0, {})
+        return SpanSummary(kernels=kernels, launches=launches)
     mine = [h for h in prog if h[3] == main]
     spans = [(s, t, i) for i, (s, t, _, _) in enumerate(mine)]
     names = [h[2] for h in mine]
@@ -147,7 +208,7 @@ def summarize(prof) -> SpanSummary:
         return pieces[j][2] if 0 <= j < len(pieces) and x < pieces[j][1] else None
 
     launched = []  # (launch time, device end) of work launched on the main thread
-    for s, t, corr in device:
+    for s, t, corr, _ in device:
         hit = frontend.get(corr)
         if hit is None or hit[1] != main:
             continue
@@ -162,9 +223,10 @@ def summarize(prof) -> SpanSummary:
         end = max([t] + [d for _, d in launched[lo:hi]])
         out[names[i]].completion_s += (end - s) * 1e-9
 
-    # Idle gaps of the window (tracesum's union), cut by the innermost span.
+    # The union of device intervals clipped to the window, and the idle gaps
+    # between, each cut by the innermost span.
     gaps, busy, cur = [], 0, w0
-    for s, t, _ in sorted(device):
+    for s, t, _, _ in sorted(device):
         s, t = max(s, w0), min(t, w1)
         if t <= cur:
             continue
@@ -205,7 +267,8 @@ def summarize(prof) -> SpanSummary:
         label = op if i is None else f"{names[i]} | {op}"
         labels[label] = labels.get(label, 0.0) + (b - a) * 1e-9
     return SpanSummary(spans=out, idle_outside_s=outside * 1e-9, busy_s=busy * 1e-9,
-                       window_s=(w1 - w0) * 1e-9, gaps=labels)
+                       window_s=(w1 - w0) * 1e-9, gaps=labels, kernels=kernels,
+                       launches=launches, solves=len(solves))
 
 
 def per_layer(spans: dict) -> dict:

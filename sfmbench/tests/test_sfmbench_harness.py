@@ -12,10 +12,11 @@ import time
 import pytest
 import torch
 
-from sfmbench import faults, harness, tracesum
+from sfmbench import faults, harness, spansum, tracesum
 from sfmbench.readings import control_solver
 from sfmbench.run import emit
 from sfmbench.tests.cells import REPO, tiny_root
+from sfmbench.tests.events import Event, profile_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -230,40 +231,23 @@ def test_the_control_is_not_correct(tiny):
     assert not result["correct"], result["checks"]
 
 
-class _Event:
-    def __init__(self, dev, name, s, e, th=1):
-        self._v = (dev, name, s, e, th)
-
-    def device_type(self):
-        return "DeviceType.CUDA" if self._v[0] else "DeviceType.CPU"
-
-    def name(self):
-        return self._v[1]
-
-    def start_ns(self):
-        return self._v[2]
-
-    def end_ns(self):
-        return self._v[3]
-
-    def start_thread_id(self):
-        return self._v[4]
-
-
 def test_trace_sums():
-    ev = [_Event(False, tracesum.SOLVE_SPAN, 0, 1000), _Event(True, tracesum.SOLVE_SPAN, 0, 1000),
-          _Event(False, "aten::item", 100, 400), _Event(False, "aten::mul", 600, 700),
-          _Event(True, "void k1<float, 6>(float*)", 0, 100),
-          _Event(True, "void k1<float, 6>(float*)", 400, 600),
-          _Event(True, "Memcpy DtoH", 650, 800), _Event(True, "void (anonymous namespace)::k2()", 780, 900)]
-    prof = type("P", (), {})()
-    prof.profiler = type("Q", (), {})()
-    prof.profiler.kineto_results = type("R", (), {"events": lambda self: ev})()
-    ts = tracesum.summarize(prof)
+    """Kernels by short name, launches, the busy union in the window, idle
+    gaps by host op; every user annotation's device projection dropped, not
+    only the solve record's; no program span, so no span sums."""
+    ev = [Event(False, tracesum.SOLVE_SPAN, 0, 1000, ua=True),
+          Event(True, tracesum.SOLVE_SPAN, 0, 1000, ua=True),
+          Event(True, "an annotation", 100, 700, ua=True),
+          Event(False, "aten::item", 100, 400), Event(False, "aten::mul", 600, 700),
+          Event(True, "void k1<float, 6>(float*)", 0, 100),
+          Event(True, "void k1<float, 6>(float*)", 400, 600),
+          Event(True, "Memcpy DtoH", 650, 800), Event(True, "void (anonymous namespace)::k2()", 780, 900)]
+    ts = tracesum.summarize(profile_of(ev))
     assert ts.kernels == {"k1<float, 6>": [2, pytest.approx(300e-9)],
                           "{anonymous}::k2": [1, pytest.approx(120e-9)]}
     assert ts.launches == 3
     assert ts.busy_s == pytest.approx(550e-9) and ts.window_s == pytest.approx(1000e-9)
     # Idle 100-400 (under aten::item) and 600-650 (under aten::mul); 900-1000 under none.
     assert ts.gaps == pytest.approx({"aten::item": 300e-9, "aten::mul": 50e-9,
-                                     tracesum.NO_OP: 100e-9})
+                                     spansum.NO_OP: 100e-9})
+    assert ts.spans == {}
