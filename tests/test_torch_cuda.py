@@ -19,6 +19,7 @@ from tpusfm_torch.pipeline.sparse import run_sparse
 from tpusfm_torch.utils import metrics
 from tpusfm_torch.utils.synth_render import render_orbit_images
 from tpusfm_torch.utils.synth_scene import point_sorted_ba_problem
+from torch_ba_routes import FIELDS, ba_args, first_linearization
 from torch_layout_cases import layout_cases, numpy_layout
 
 torch.set_num_threads(2)
@@ -293,17 +294,57 @@ def test_ba_self_calibration_and_schur_diag_run_kernels_on_card(dev):
         assert abs(kc - pc) <= 1e-2 * pc, (cfg, kc, pc)
 
 
-def test_ba_above_2048_cameras_takes_the_unfused_kernels(dev):
-    """2,100 cameras: K2 cannot hold the camera table, so linearization is
-    jacfwd reduced by K6 (cameras) and K7 (ranks); the cost falls."""
-    args = _ba_args(point_sorted_ba_problem(2100, 3000, vis_prob=0.05), dev)
+def _above_2048_problem():
+    return point_sorted_ba_problem(2100, 3000, vis_prob=0.05)
+
+
+def test_ba_above_2048_cameras_takes_k2(dev):
+    """2,100 cameras: K2 reads its camera rows from device memory, so no
+    camera count sends RADIAL3 to jacfwd; linearization is K2 and no K6 or
+    K7 launches; the cost falls."""
+    args = _ba_args(_above_2048_problem(), dev)
     for name in ot.LAUNCHES:
         ot.LAUNCHES[name] = 0
     out = tba.bundle_adjust(cfg=tba.BAConfig(max_iters=3), **args)
+    assert ot.LAUNCHES["linearize_reduce_radial3_t"] > 0
+    assert ot.LAUNCHES["segsum_table_t"] == 0 and ot.LAUNCHES["segsum_sorted_t"] == 0
+    assert float(out[4]["final_cost"]) < 0.5 * float(out[4]["initial_cost"])
+    assert torch.isfinite(out[3]).all()
+
+
+def test_ba_above_2048_cameras_takes_the_unfused_kernels(dev):
+    """The same 2,100 cameras with fused_linearize=False: linearization is
+    jacfwd reduced by K6 (cameras) and K7 (ranks), K2 does not launch; the
+    cost falls."""
+    args = _ba_args(_above_2048_problem(), dev)
+    for name in ot.LAUNCHES:
+        ot.LAUNCHES[name] = 0
+    out = tba.bundle_adjust(cfg=tba.BAConfig(max_iters=3, fused_linearize=False), **args)
     assert ot.LAUNCHES["linearize_reduce_radial3_t"] == 0
     assert ot.LAUNCHES["segsum_table_t"] > 0 and ot.LAUNCHES["segsum_sorted_t"] > 0
     assert float(out[4]["final_cost"]) < 0.5 * float(out[4]["initial_cost"])
     assert torch.isfinite(out[3]).all()
+
+
+def test_k2_matches_jacfwd_above_2048_cameras(dev, monkeypatch):
+    """The first linearization at 2,100 cameras, Hcc, gc, Hpp, gp and the
+    cost, through K2 and through jacfwd + K6/K7 on the card: each within 4x
+    its own route's float32 twin's error (the kernel path on CPU tensors)
+    against the jacfwd route in float64 (_oracle_close).  That the two
+    routes agree in float64 is held on the CPU (test_torch_ba_route.py)."""
+    prob = _above_2048_problem()
+    cfgs = {fused: tba.BAConfig(impl="pallas", fused_linearize=fused) for fused in (True, False)}
+    f64 = first_linearization(ba_args(prob, "cpu", torch.float64), cfgs[False], monkeypatch)
+    for fused, cfg in cfgs.items():
+        for name in ot.LAUNCHES:
+            ot.LAUNCHES[name] = 0
+        card = first_linearization(ba_args(prob, dev), cfg, monkeypatch)
+        torch.cuda.synchronize()
+        assert (ot.LAUNCHES["linearize_reduce_radial3_t"] > 0) == fused, ot.LAUNCHES
+        twin = first_linearization(ba_args(prob, "cpu"), cfg, monkeypatch)
+        route = "K2" if fused else "jacfwd"
+        for k in FIELDS:
+            _oracle_close(card[k].cpu(), twin[k], f64[k], f"{route} {k}")
 
 
 GAP = 200

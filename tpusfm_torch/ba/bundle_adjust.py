@@ -18,10 +18,10 @@ twins).  It runs for ``impl="pallas"`` on any device, and for
 ``impl="auto"`` on a CUDA device when the dense solve is not eligible (more
 than 64 cameras), where the reference runs those kernels on its chip.  It
 covers the reference's single-device contract: intrinsics held or refined
-per group, RADIAL3 through the fused K2 or any camera model (and more than
-2048 cameras or groups, or ``fused_linearize=False``) through jacfwd and
-the segment sums K6/K7, both preconditioners, and with ``pallas_gathers``
-the per-observation gathers through K8 and K9.  On the CPU,
+per group, RADIAL3 through the fused K2 at any number of cameras and
+groups, any other camera model (or ``fused_linearize=False``) through
+jacfwd and the segment sums K6/K7, both preconditioners, and with
+``pallas_gathers`` the per-observation gathers through K8 and K9.  On the CPU,
 ``impl="auto"`` takes the plain PCG path, as the reference's
 ``impl="xla"`` does.  The plain path assembles the normal equations over
 chunks of ``obs_chunk`` observations, the table padded to a multiple with
@@ -92,9 +92,9 @@ class BAConfig:
                                    # (every id up to max(obs_pt) has a row; unobserved points
                                    # only trail), so the per-solve sort is skipped and
                                    # fractional obs weights are honoured
-    fused_linearize: bool = True   # kernel path: RADIAL3 with at most 2048 cameras and groups
-                                   # linearizes through the fused K2; False takes the unfused
-                                   # path (jacfwd reduced by K6 and K7)
+    fused_linearize: bool = True   # kernel path: RADIAL3 linearizes through the fused K2;
+                                   # False takes the unfused path (jacfwd reduced by K6 and
+                                   # K7), as other camera models do
     dense_schur_max_dim: int = 384  # dense Cholesky of the reduced system up to this width
     dense_schur_max_bytes: int = 256 * 1024 * 1024  # cap on the coupling tables
     camera_model: str = "auto"     # "auto" (7 lanes RADIAL3, 9 Brown-T2) | "fisheye" | "spherical"
@@ -184,8 +184,17 @@ def _damp_blocks(H, lam):
 
 
 def _inv3(M):
-    """Batched closed-form (adjugate) 3x3 inverse with a ridge."""
+    """Batched closed-form (adjugate) 3x3 inverse with a ridge.  A block
+    whose largest entry passes 2^40 is first divided by a power of two near
+    that entry, so that the determinant's triple products stay finite in
+    float32: a point just behind an image plane gives a point block of 1e15
+    and more, whose unscaled determinant overflows and turns the whole LM
+    step into NaN.  Dividing by a power of two is exact, so every block
+    below 2^40 gets the bits it got unscaled."""
     M = M + 1e-12 * torch.eye(3, dtype=M.dtype, device=M.device)
+    m = M.abs().amax(dim=(-2, -1))
+    s = torch.exp2(torch.where(m > 2.0 ** 40, torch.floor(torch.log2(m)), torch.zeros_like(m)))
+    M = M / s[..., None, None]
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -202,7 +211,7 @@ def _inv3(M):
     det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
     adj = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F], -1),
                        torch.stack([G, H, I], -1)], -2)
-    return adj / det[..., None, None]
+    return adj / (det * s)[..., None, None]
 
 
 def _invD(M):
@@ -448,10 +457,12 @@ def camera_table(ps: torch.Tensor) -> torch.Tensor:
     return torch.cat([ps[:, 3:6], R.reshape(C, 9), Jr.reshape(C, 9)], 1)
 
 
-def _fused(cfg: BAConfig, C: int, G: int, E: int) -> bool:
+def _fused(cfg: BAConfig, E: int) -> bool:
     """Whether the kernel path linearizes through the fused K2, whose
-    closed-form Jacobians are RADIAL3 (reference :668-669)."""
-    return (cfg.fused_linearize and C <= 2048 and G <= 2048 and E == INTR_DIM
+    closed-form Jacobians are RADIAL3.  K2 reads each camera and group row
+    from device memory, so no count of cameras or groups bounds it (the
+    reference, :665-669, caps both at 2048 for its VMEM-resident tables)."""
+    return (cfg.fused_linearize and E == INTR_DIM
             and cfg.camera_model in ("auto", "radial3"))
 
 
@@ -464,8 +475,8 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     call.  On one device the whole point side of the state lives in rank
     space; sharded (``cfg.axis_name``), it stays in point space, and each
     rank-indexed reduction is scattered to its points and summed over the
-    ranks (reference :655-665).  Linearization is K2 (fused, RADIAL3 with at
-    most 2048 cameras and groups, unless ``fused_linearize=False``), else
+    ranks (reference :655-665).  Linearization is K2 (fused, RADIAL3, at any
+    number of cameras and groups, unless ``fused_linearize=False``), else
     per-observation jacfwd Jacobians, on rows gathered by K8 and K9 under
     ``pallas_gathers``, reduced through K6 (cameras, groups) and K7 (point
     ranks); the right-hand side is K4; a CG matvec is K3 on one device with
@@ -477,7 +488,7 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
     P = points.shape[0]
     D, E = POSE_DIM, gintr0.shape[-1]
     refine = cfg.refine_intrinsics
-    fused = _fused(cfg, C, G, E)
+    fused = _fused(cfg, E)
     ax = cfg.axis_name
     # Shard-local rank spaces differ, so a sharded solve keeps the point side
     # in (replicated) point space (reference :655-665).
@@ -757,7 +768,7 @@ def bundle_adjust(
     kernels = cfg.impl == "pallas" or (cfg.impl == "auto" and dev.type == "cuda" and not dense_ok)
     args = ""
     if spans.recording():
-        path = ("kernel " + ("fused" if _fused(cfg, C, G, E) else "unfused") if kernels
+        path = ("kernel " + ("fused" if _fused(cfg, E) else "unfused") if kernels
                 else "dense" if dense_ok else "plain")
         args = (f"C={C} P={P} O={obs_cam.shape[0]} G={G} path={path} "
                 + ("refine" if refine else "held"))
