@@ -1046,6 +1046,70 @@ def test_seg_layout_kernel_on_the_ba_tables(engine_tables, shape):
     assert not bool(t["layout"].in_seg_order) and bool(t["grp_layout"].in_seg_order)
 
 
+@pytest.fixture(scope="module")
+def final13682():
+    """BAL Final-13682 at full size (13,682 cameras, 4,456,117 points,
+    28,987,644 observations), made on the card by the benchmark's generator
+    from its configuration: (configuration, scene)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA; none is visible to torch")
+    import json
+    from pathlib import Path
+
+    from sfmbench.gen import scene as gen
+
+    path = Path(__file__).resolve().parents[1] / "sfmbench/configs/bal-final-13682.json"
+    cfg = json.loads(path.read_text())
+    return cfg, gen.generate(cfg, "cuda")
+
+
+def test_seg_layout_at_final_13682_camera_column(final13682):
+    """The layout kernel on Final-13682's camera column, all 28,987,644 ids
+    over 13,682 segments, camera-major as generated and point-sorted as a
+    solve lays it out: the one-warp plan with no staged tile, one launch
+    each, bit-equal to the twin's stable sort on the card."""
+    _, scene = final13682
+    n, O = scene.shape[0], scene.shape[2]
+    assert ot._layout_plan(n, O) == (1, 13824, 2097, False)
+    point_sorted = scene.obs_cam[torch.sort(scene.obs_pt, stable=True).indices]
+    assert "route=kernel warps=1 warp_rows=13824 tiles=2097 staged=0" in \
+        ot.layout_plan_args(point_sorted, n)
+    for what, ids in (("camera-major", scene.obs_cam), ("point-sorted", point_sorted)):
+        before = ot.LAUNCHES["seg_layout"]
+        got = ot.seg_layout(ids, n)
+        torch.cuda.synchronize()
+        assert ot.LAUNCHES["seg_layout"] == before + 1
+        _layout_equal(got, ot.seg_layout_reference(ids, n), f"Final-13682 {what}")
+        assert bool(got[4]) == (what == "camera-major")
+
+
+def test_final_13682_solve_takes_k2_and_ends_finite(final13682):
+    """One full-size Final-13682 solve as the benchmark calls it
+    (the configuration's solver settings, a group a camera, a start
+    perturbed by 0.01 in pose and 0.02 in points): every linearization is
+    K2's, CG products are K3's, the camera layout is the kernel's, no K6 or
+    K7 launches, and the answer is finite below its start's cost."""
+    cfg, scene = final13682
+    C, P, O = scene.shape
+    g = torch.Generator(device="cuda").manual_seed(13682)
+    rot = scene.aa + 0.01 * torch.randn(C, 3, generator=g, device="cuda")
+    t = scene.t + 0.01 * torch.randn(C, 3, generator=g, device="cuda")
+    pts = scene.points + 0.02 * torch.randn(P, 3, generator=g, device="cuda")
+    ones = dict(dtype=torch.bool, device="cuda")
+    for name in ot.LAUNCHES:
+        ot.LAUNCHES[name] = 0
+    out = tba.bundle_adjust(scene.intr, rot, t, torch.ones(C, **ones), pts, torch.ones(P, **ones),
+                            scene.obs_cam, scene.obs_pt, scene.obs_uv, torch.ones(O, **ones),
+                            tba.BAConfig(**cfg["ba"]))
+    torch.cuda.synchronize()
+    info = out[4]
+    assert ot.LAUNCHES["linearize_reduce_radial3_t"] == info["iterations"] + 1, ot.LAUNCHES
+    assert ot.LAUNCHES["schur_mv_t"] > 0 and ot.LAUNCHES["seg_layout"] == 1, ot.LAUNCHES
+    assert ot.LAUNCHES["segsum_table_t"] == ot.LAUNCHES["segsum_sorted_t"] == 0, ot.LAUNCHES
+    assert all(bool(torch.isfinite(x).all()) for x in out[:4])
+    assert 0 < float(info["final_cost"]) < float(info["initial_cost"])
+
+
 @pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [6, 7, 9])
 @pytest.mark.parametrize("ids", ["cameras", "one group"])

@@ -19,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from sfmbench import spansum
+from sfmbench.counts import layout as layout_counts
 from tpusfm_torch.ba import bundle_adjust as tba
 from tpusfm_torch.utils import spans
 from tpusfm_torch.utils.synth_scene import orbit_scene
@@ -33,7 +34,8 @@ VARIANTS = {
     "plain_pcg": dict(impl="xla", dense_schur_max_dim=0),
     "dense": dict(impl="xla"),
 }
-PARENT = {spans.BA_PREP: spans.BA_SOLVE, spans.BA_LINEARIZE: spans.BA_SOLVE,
+PARENT = {spans.BA_PREP: spans.BA_SOLVE, spans.BA_PREP_LAYOUT: spans.BA_PREP,
+          spans.BA_LINEARIZE: spans.BA_SOLVE,
           spans.BA_STEP: spans.BA_SOLVE, spans.BA_PCG: spans.BA_STEP,
           spans.BA_PCG_MATVEC: spans.BA_PCG, spans.BA_PCG_STOP_READ: spans.BA_PCG,
           spans.BA_LM_ACCEPT: spans.BA_SOLVE, spans.BA_LM_STOP_READ: spans.BA_SOLVE}
@@ -148,6 +150,9 @@ def test_span_tree_and_counts(variant, monkeypatch):
     kernel, cg = variant.startswith("kernel"), variant != "dense"
     assert n[spans.BA_SOLVE] == 1
     assert n[spans.BA_PREP] == (1 if kernel else 0)
+    # The cameras' layout, and the groups' when refining.
+    refine = VARIANTS[variant].get("refine_intrinsics", False)
+    assert n[spans.BA_PREP_LAYOUT] == ((2 if refine else 1) if kernel else 0)
     assert n[spans.BA_LINEARIZE] == iters + 1
     assert n[spans.BA_STEP] == n[spans.BA_LM_ACCEPT] == n[spans.BA_LM_STOP_READ] == iters
     assert n[spans.BA_PCG] == (iters if cg else 0)
@@ -158,11 +163,12 @@ def test_span_tree_and_counts(variant, monkeypatch):
 
 
 def test_reader_names_and_numbers(monkeypatch):
-    """spansum's names are the spans module's; on a CPU profile of a
-    kernel-path solve it counts what the tree holds."""
+    """spansum's names and the layout readers' span are the spans module's;
+    on a CPU profile of a kernel-path solve it counts what the tree holds."""
     assert {getattr(spansum, k) for k in ("SOLVE", "PREP", "LINEARIZE", "STEP", "PCG",
                                           "PCG_MATVEC", "PCG_STOP_READ", "LM_ACCEPT",
-                                          "LM_STOP_READ")} == set(spans.NAMES)
+                                          "LM_STOP_READ")} | {layout_counts.SPAN} \
+        == set(spans.NAMES)
     assert spansum.PREFIX == spans.PREFIX
     products = [0]
     pcg = tba._pcg
@@ -181,6 +187,7 @@ def test_reader_names_and_numbers(monkeypatch):
     got = {k: v.n for k, v in ss.spans.items()}
     assert got[spans.BA_LINEARIZE] == iters + 1 and got[spans.BA_PCG] == iters
     assert got[spans.BA_PCG_MATVEC] == products[0]
+    assert got[layout_counts.SPAN] == got[spans.BA_PREP] == 1
     layer = spansum.per_layer(ss.spans)
     assert layer["cg_iters_per_step"] == products[0] / iters
     assert set(layer) == {"prep_ms", "linearize_ms", "cg_iters_per_step",

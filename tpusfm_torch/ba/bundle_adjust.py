@@ -27,10 +27,11 @@ jacfwd and the segment sums K6/K7, both preconditioners, and with
 chunks of ``obs_chunk`` observations, the table padded to a multiple with
 weight-0 rows as in the reference; the kernel path ignores the field.  The
 LM and CG loops are Python loops that read one convergence flag from the
-device per iteration.  The solve, the kernel path's per-solve preparation,
-each linearization, LM step, CG loop and CG product, LM's accept and both
-flag reads run under spans (``utils/spans.py``), which a running profiler
-records and which cost one check of its state otherwise.
+device per iteration.  The solve, the kernel path's per-solve preparation
+and its segment layouts, each linearization, LM step, CG loop and CG
+product, LM's accept and both flag reads run under spans
+(``utils/spans.py``), which a running profiler records and which cost one
+check of its state otherwise.
 
 ``BAConfig.axis_name`` names a mesh axis (``parallel/mesh.py``): the
 observation table passed in is then this rank's shard, and every
@@ -457,6 +458,13 @@ def camera_table(ps: torch.Tensor) -> torch.Tensor:
     return torch.cat([ps[:, 3:6], R.reshape(C, 9), Jr.reshape(C, 9)], 1)
 
 
+def _obs_layout(seg_ids, n, ranks, p=None):
+    """``ot.obs_layout`` under its span, whose args name the layout's plan."""
+    args = ot.layout_plan_args(seg_ids, n) if spans.recording() else ""
+    with spans.span(spans.BA_PREP_LAYOUT, args):
+        return ot.obs_layout(seg_ids, n, ranks, p)
+
+
 def _fused(cfg: BAConfig, E: int) -> bool:
     """Whether the kernel path linearizes through the fused K2, whose
     closed-form Jacobians are RADIAL3.  K2 reads each camera and group row
@@ -521,10 +529,10 @@ def _lm_kernels(pose0, gintr0, points, refine_m, upd_c, upd_g, pt_upd, cam_group
             obs_uv = torch.stack([uv0, uv1], 1)
         obs_uvT = obs_uv.T.contiguous()
         safe_r2p = torch.clamp(rank_to_pt, max=P - 1).long()
-        layout = ot.obs_layout(obs_cam, C, ranks, P)
+        layout = _obs_layout(obs_cam, C, ranks, P)
         # K4 reads Wc in camera order (sys["Wc_seg"], written by K2 or gathered
         # by K8); a one-group Wg is in group order already (in_seg_order).
-        grp_layout = ot.obs_layout(obs_grp, G, ranks) if refine else None
+        grp_layout = _obs_layout(obs_grp, G, ranks) if refine else None
         wdt = ot._w_torch_dtype(cfg.w_dtype)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         full66 = torch.tensor(ot._FULL66, device=dev)

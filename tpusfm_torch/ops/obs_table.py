@@ -255,6 +255,19 @@ def seg_layout(ids: torch.Tensor, n: int):
     return seg_perm, seg_start, chunk_start, arrivals, in_order
 
 
+def layout_plan_args(seg_ids: torch.Tensor, n: int) -> str:
+    """The plan obs_layout takes for `seg_ids` and n, as a span's args: the
+    kernel's warps a block, rows a warp, tiles and whether a tile is staged
+    in shared memory, or the twin's sort (off the card, or past
+    LAYOUT_MAX_N segments)."""
+    O = seg_ids.shape[0]
+    if seg_ids.device.type != "cuda" or n > LAYOUT_MAX_N:
+        return f"n={n} O={O} route=sort"
+    warps, warp_rows, tiles, staged = _layout_plan(n, O)
+    return (f"n={n} O={O} route=kernel warps={warps} warp_rows={warp_rows} tiles={tiles} "
+            f"staged={int(staged)}")
+
+
 def obs_layout(seg_ids: torch.Tensor, n: int, ranks: torch.Tensor | None = None,
                p: int | None = None) -> ObsLayout:
     """The layout of a table: the rows of each of the n segments of

@@ -38,6 +38,9 @@ PREFIX = "tpusfm."
 BA_SOLVE = "tpusfm.ba.solve"
 # Kernel path, once per solve: sort and rank compaction, layouts, rank-space state.
 BA_PREP = "tpusfm.ba.prep"
+# Inside prep, each segment layout (obs_layout): the cameras', and the groups'
+# when refining; args name the layout's plan (ops.obs_table.layout_plan_args).
+BA_PREP_LAYOUT = "tpusfm.ba.prep.layout"
 # Each linearization (LM iterations + 1).
 BA_LINEARIZE = "tpusfm.ba.linearize"
 # Each LM step: damping, reduced right-hand side, preconditioner, PCG, back-substitution.
@@ -53,8 +56,8 @@ BA_LM_ACCEPT = "tpusfm.ba.lm.accept"
 # The host read of LM's stop flag, once per LM iteration.
 BA_LM_STOP_READ = "tpusfm.ba.lm.stop_read"
 
-NAMES = (BA_SOLVE, BA_PREP, BA_LINEARIZE, BA_STEP, BA_PCG, BA_PCG_MATVEC, BA_PCG_STOP_READ,
-         BA_LM_ACCEPT, BA_LM_STOP_READ)
+NAMES = (BA_SOLVE, BA_PREP, BA_PREP_LAYOUT, BA_LINEARIZE, BA_STEP, BA_PCG, BA_PCG_MATVEC,
+         BA_PCG_STOP_READ, BA_LM_ACCEPT, BA_LM_STOP_READ)
 
 _OFF = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
